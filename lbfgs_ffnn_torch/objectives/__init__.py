@@ -1,0 +1,21 @@
+from lbfgs_ffnn_torch.objectives.mlp import (
+    MLPSpec,
+    evaluate,
+    mlp_apply,
+    mlp_init,
+    mlp_loss,
+    mlp_problem,
+    mlp_spec,
+    params_from_numpy,
+)
+
+__all__ = [
+    "MLPSpec",
+    "evaluate",
+    "mlp_apply",
+    "mlp_init",
+    "mlp_loss",
+    "mlp_problem",
+    "mlp_spec",
+    "params_from_numpy",
+]

@@ -1,0 +1,277 @@
+"""Flat-parameter dense MLP objective.
+
+Counterpart of :mod:`lbfgs_ffnn_tpu.objectives.mlp`: the network is a pure
+function of one flat parameter tensor with the same layout (per layer, W
+row-major ``(d_in, d_out)`` then b), the forward pass is a chain of
+``torch.matmul``, and gradients come from ``torch.func``. No ``nn.Module``:
+the objective holds no state.
+
+Conventions (the JAX package's, from the reference):
+  * loss = 0.5*||out - y||^2 / batch, optional L2 term 0.5*lam*||w||^2
+  * init std = act_scale * sqrt(1/fan_in), act_scale = sqrt(2) for ReLU else 1
+  * ``bias_init`` "random" (same distribution as weights) or "zeros"
+
+Not ported yet (each raises ``NotImplementedError`` when asked for): the
+narrow ``*_input_dtype`` copies and their ``prepare``, ``compute_dtype``,
+``remat``, uint8 inputs.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from lbfgs_ffnn_torch.types import LinePrefix, Problem, make_problem
+
+_ACTIVATIONS = {
+    "linear": lambda z: z,
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+}
+
+_INIT_SCALE = {
+    "linear": 1.0,
+    "relu": math.sqrt(2.0),
+    "sigmoid": 1.0,
+    "tanh": 1.0,
+}
+
+
+class MLPSpec(NamedTuple):
+    """Static architecture description: ``dims[i] -> dims[i+1]`` per layer."""
+
+    dims: tuple[int, ...]
+    activations: tuple[str, ...]
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.dims) - 1
+
+    @property
+    def n_params(self) -> int:
+        return sum(
+            self.dims[i] * self.dims[i + 1] + self.dims[i + 1]
+            for i in range(self.n_layers)
+        )
+
+    def layer_slices(self):
+        """Yield (w_offset, b_offset, in_dim, out_dim) per layer."""
+        off = 0
+        for i in range(self.n_layers):
+            d_in, d_out = self.dims[i], self.dims[i + 1]
+            yield off, off + d_in * d_out, d_in, d_out
+            off += d_in * d_out + d_out
+
+
+def mlp_spec(dims: Sequence[int], activations: Sequence[str]) -> MLPSpec:
+    dims = tuple(int(d) for d in dims)
+    activations = tuple(a.lower() for a in activations)
+    if len(activations) != len(dims) - 1:
+        raise ValueError("need one activation per layer")
+    for a in activations:
+        if a not in _ACTIVATIONS:
+            raise ValueError(f"unknown activation {a!r}")
+    return MLPSpec(dims=dims, activations=activations)
+
+
+def mlp_init(
+    spec: MLPSpec,
+    generator: torch.Generator,
+    dtype=torch.float32,
+    bias_init: str = "random",
+    device=None,
+) -> torch.Tensor:
+    """Seeded N(0, sigma) init into one flat tensor, drawn from ``generator``
+    on its own device and moved to ``device``. The stream differs from
+    ``jax.random``'s for the same seed; parity tests pass ``w0`` in."""
+    if bias_init not in ("random", "zeros"):
+        raise ValueError(f"unknown bias_init {bias_init!r}")
+    parts = []
+    for li, (w_off, b_off, d_in, d_out) in enumerate(spec.layer_slices()):
+        std = _INIT_SCALE[spec.activations[li]] * math.sqrt(1.0 / d_in)
+        w = std * torch.randn(d_in * d_out, generator=generator, dtype=dtype,
+                              device=generator.device)
+        if bias_init == "random":
+            b = std * torch.randn(d_out, generator=generator, dtype=dtype,
+                                  device=generator.device)
+        else:
+            b = torch.zeros(d_out, dtype=dtype, device=generator.device)
+        parts.append(w)
+        parts.append(b)
+    return torch.cat(parts).to(device)
+
+
+def params_from_numpy(spec: MLPSpec, w: np.ndarray, device=None,
+                      dtype=torch.float32) -> torch.Tensor:
+    """Carry a flat parameter vector over from the JAX package (or any numpy
+    source): the layouts are identical, so this is a length-checked copy."""
+    w = np.asarray(w)
+    if w.ndim != 1 or w.shape[0] != spec.n_params:
+        raise ValueError(
+            f"expected a flat vector of {spec.n_params} parameters for dims "
+            f"{spec.dims}, got shape {w.shape}")
+    return torch.tensor(w, dtype=dtype, device=device)
+
+
+def _layer(w: torch.Tensor, w_off: int, b_off: int, d_in: int, d_out: int):
+    return w[w_off: w_off + d_in * d_out].view(d_in, d_out), w[b_off: b_off + d_out]
+
+
+def _check_input(x: torch.Tensor) -> None:
+    if not torch.is_floating_point(x):
+        if x.dtype == torch.uint8:
+            raise NotImplementedError(
+                "uint8 pixel-quantized inputs are not ported yet")
+        raise ValueError(f"MLP inputs must be floating point, got {x.dtype}")
+
+
+def mlp_apply(spec: MLPSpec, w: torch.Tensor, x: torch.Tensor,
+              compute_dtype=None) -> torch.Tensor:
+    """Forward pass. ``x`` is batch-major ``(B, in_dim)`` -> ``(B, out_dim)``."""
+    if compute_dtype is not None:
+        raise NotImplementedError("compute_dtype is not ported yet")
+    _check_input(x)
+    h = x
+    for li, (w_off, b_off, d_in, d_out) in enumerate(spec.layer_slices()):
+        W, b = _layer(w, w_off, b_off, d_in, d_out)
+        h = _ACTIVATIONS[spec.activations[li]](h @ W + b)
+    return h
+
+
+def mlp_loss(spec: MLPSpec, w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+             lam: float = 0.0, compute_dtype=None) -> torch.Tensor:
+    """Mean 0.5*MSE over the batch, optionally L2-regularized."""
+    out = mlp_apply(spec, w, x, compute_dtype)
+    diff = out - y
+    loss = 0.5 * torch.sum(diff * diff) / x.shape[0]
+    if lam:
+        loss = loss + 0.5 * lam * torch.dot(w, w)
+    return loss
+
+
+def mlp_problem(
+    spec: MLPSpec, lam: float = 0.0, compute_dtype=None, remat: bool = False,
+    grad_input_dtype=None, line_input_dtype=None, fun_input_dtype=None,
+) -> Problem:
+    """Full-batch Problem; ``aux = (x, y)``.
+
+    Along a fixed direction ``p`` the first-layer preactivation is affine in
+    the step length, ``z1(alpha) = (x@W1_w + b1_w) + alpha*(x@W1_p + b1_p)
+    = A + alpha*B``; the carried ``line_prefix`` keeps A in the solver state,
+    so a line-search trial is one elementwise combine over ``(batch, d1)``
+    plus the rest layers, and the input matrix is read once per iteration
+    for B and once for the accepted point's ``dW1 = x^T dz1``.
+    """
+    unported = {"compute_dtype": compute_dtype, "grad_input_dtype": grad_input_dtype,
+                "line_input_dtype": line_input_dtype,
+                "fun_input_dtype": fun_input_dtype}
+    for name, val in unported.items():
+        if val is not None:
+            raise NotImplementedError(f"mlp_problem({name}={val!r}) is not ported yet")
+    if remat:
+        raise NotImplementedError("mlp_problem(remat=True) is not ported yet")
+
+    def fun(w, aux):
+        return mlp_loss(spec, w, aux[0], aux[1], lam)
+
+    w_off, b_off, d_in, d_out = next(iter(spec.layer_slices()))
+    first_elems = d_in * d_out + d_out
+    act0 = _ACTIVATIONS[spec.activations[0]]
+    rest_spec = (
+        MLPSpec(dims=spec.dims[1:], activations=spec.activations[1:])
+        if spec.n_layers > 1 else None
+    )
+
+    def _first_affine(v, x):
+        _check_input(x)
+        W, b = _layer(v, w_off, b_off, d_in, d_out)
+        return x @ W + b
+
+    def _loss_from_z1(w_rest_alpha, z1, y, n_batch):
+        """Shared loss body for the restriction and its value-and-grad form."""
+        h = act0(z1)
+        out = mlp_apply(rest_spec, w_rest_alpha, h) if rest_spec is not None else h
+        diff = out - y
+        return 0.5 * torch.sum(diff * diff) / n_batch
+
+    def restrict(A, B, w, p, aux):
+        x, y = aux[0], aux[1]
+        w_rest = w[first_elems:]
+        p_rest = p[first_elems:]
+
+        def value(alpha):
+            loss = _loss_from_z1(w_rest + alpha * p_rest, A + alpha * B, y, x.shape[0])
+            if lam:
+                wa = w + alpha * p
+                loss = loss + 0.5 * lam * torch.dot(wa, wa)
+            return loss
+
+        return value
+
+    def line_fun(w, p, aux):
+        x = aux[0]
+        return restrict(_first_affine(w, x), _first_affine(p, x), w, p, aux)
+
+    def _vag_restrict_full(A, B, w, p, aux):
+        """Full (loss, grad, z1) at ``w + alpha*p`` computed from the prefix:
+        the forward never recomputes ``x @ W1`` (z1 = A + alpha*B); the rest
+        layers' gradient and dz1 come from one ``torch.func.vjp`` and the
+        first layer's is assembled as dW1 = x^T dz1, db1 = sum(dz1). The
+        returned ``z1`` is the post-step prefix the solver carries."""
+        x, y = aux[0], aux[1]
+
+        def value_and_grad_at(alpha):
+            z1 = A + alpha * B
+            w_rest = w[first_elems:] + alpha * p[first_elems:]
+
+            def from_z1(w_r, z1_):
+                return _loss_from_z1(w_r, z1_, y, x.shape[0])
+
+            loss, vjp_fn = torch.func.vjp(from_z1, w_rest, z1)
+            g_rest, dz1 = vjp_fn(torch.ones_like(loss))
+            gW1 = x.T @ dz1
+            gb1 = torch.sum(dz1, dim=0)
+            g = torch.cat([gW1.reshape(-1), gb1, g_rest])
+            if lam:
+                wa = w + alpha * p
+                loss = loss + 0.5 * lam * torch.dot(wa, wa)
+                g = g + lam * wa
+            return loss, g, z1
+
+        return value_and_grad_at
+
+    def vag_restrict(A, B, w, p, aux):
+        inner = _vag_restrict_full(A, B, w, p, aux)
+
+        def value_and_grad_at(alpha):
+            loss, g, _z1 = inner(alpha)
+            return loss, g
+
+        return value_and_grad_at
+
+    line_prefix = LinePrefix(
+        init=lambda w, aux: _first_affine(w, aux[0]),
+        direction=lambda p, aux: _first_affine(p, aux[0]),
+        restrict=restrict,
+        vag_restrict=vag_restrict,
+        vag_restrict_carry=_vag_restrict_full,
+    )
+    return make_problem(fun, line_fun=line_fun, line_prefix=line_prefix)
+
+
+def evaluate(spec: MLPSpec, w: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> dict:
+    """Accuracy (argmax match) and total 0.5*||out-y||^2."""
+    out = mlp_apply(spec, w, x)
+    correct = int(torch.sum(out.argmax(dim=1) == y.argmax(dim=1)))
+    diff = out - y
+    n = x.shape[0]
+    return {
+        "n": n,
+        "correct": correct,
+        "accuracy": correct / n * 100.0,
+        "total_mse": float(0.5 * torch.sum(diff * diff)),
+    }

@@ -1,0 +1,90 @@
+"""Armijo backtracking with safeguarded quadratic interpolation.
+
+Counterpart of :func:`lbfgs_ffnn_tpu.ops.linesearch.armijo_quad_line_search`
+(the reference CUDA backend's policy, src/cuda/lbfgs.cuh:108-147), with the
+same trial sequence. The JAX version is a ``lax.while_loop`` that never
+leaves the device; here the loop runs on the host and exits early on the
+accept test, which costs exactly one host sync per trial. Every other
+quantity (alpha, the interpolation, the accept flag) stays a device tensor.
+Wolfe and the batched Armijo search are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+
+class LineSearchResult(NamedTuple):
+    alpha: torch.Tensor      # accepted (or last-evaluated) step length
+    ok: torch.Tensor         # bool: did any trial satisfy the accept test?
+    evaluated: bool          # do f_new/g_new correspond to `alpha`?
+    f_new: torch.Tensor      # loss at x + alpha*p
+    g_new: torch.Tensor      # grad at x + alpha*p
+    n_trials: int = 0        # objective evaluations (= host syncs) performed
+    carry: Any = ()          # accept-point carry from ``vag_carry_along``
+
+
+def armijo_quad_line_search(
+    value_and_grad: Callable[..., tuple[torch.Tensor, torch.Tensor]],
+    x: torch.Tensor,
+    p: torch.Tensor,
+    f0: torch.Tensor,
+    dg0: torch.Tensor,
+    aux: Any = (),
+    *,
+    c1: float = 1e-4,
+    shrink: float = 0.5,
+    max_iters: int = 20,
+    alpha0: torch.Tensor | float = 1.0,
+    value: Callable[..., torch.Tensor] | None = None,
+    value_along: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    vag_along: Callable[[torch.Tensor], tuple] | None = None,
+    vag_carry_along: Callable[[torch.Tensor], tuple] | None = None,
+) -> LineSearchResult:
+    """Per trial: evaluate at ``alpha``; if ``f <= f0 + c1*alpha*dg0``,
+    accept. Otherwise propose the minimizer of the quadratic fit
+    ``a* = -dg0*a^2 / (2*(f_new - f0 - dg0*a))`` and take it if it lies in
+    ``[0.1a, 0.9a]`` (and ``|denominator| > 1e-20``); else ``a *= shrink``.
+    When every trial fails, the result carries the last *evaluated* alpha
+    with ``ok`` false.
+
+    With ``value`` (loss-only) the trials run forward-only, through
+    ``value_along`` (``alpha -> f(x + alpha*p)``) when given, and one
+    value-and-gradient at the chosen alpha produces ``f_new``/``g_new``:
+    ``vag_carry_along`` (which also returns a carry, handed back in
+    ``carry``), else ``vag_along``, else ``value_and_grad``. Without
+    ``value`` every trial is a fused ``value_and_grad``.
+    """
+    if max_iters < 1:
+        raise ValueError("armijo_quad_line_search needs max_iters >= 1")
+    fused = value is None
+    a = torch.as_tensor(alpha0, dtype=x.dtype, device=x.device)
+    g_new = None
+    for i in range(max_iters):
+        if fused:
+            f_new, g_new = value_and_grad(x + a * p, aux)
+        elif value_along is not None:
+            f_new = value_along(a)
+        else:
+            f_new = value(x + a * p, aux)
+        ok = f_new <= f0 + c1 * a * dg0
+        if bool(ok) or i == max_iters - 1:  # the one host sync of a trial
+            break
+        denom = 2.0 * (f_new - f0 - dg0 * a)
+        a_quad = -(dg0 * a * a) / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+        quad_ok = (torch.abs(denom) > 1e-20) & (a_quad >= 0.1 * a) & (a_quad <= 0.9 * a)
+        a = torch.where(quad_ok, a_quad, a * shrink)
+    n_trials = i + 1
+
+    carry = ()
+    if not fused:
+        if vag_carry_along is not None:
+            f_new, g_new, carry = vag_carry_along(a)
+        elif vag_along is not None:
+            f_new, g_new = vag_along(a)
+        else:
+            f_new, g_new = value_and_grad(x + a * p, aux)
+    return LineSearchResult(alpha=a, ok=ok, evaluated=True, f_new=f_new,
+                            g_new=g_new, n_trials=n_trials, carry=carry)

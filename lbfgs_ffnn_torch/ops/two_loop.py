@@ -1,0 +1,142 @@
+"""L-BFGS two-loop recursion and curvature-pair ring buffer, plain PyTorch.
+
+Counterpart of :mod:`lbfgs_ffnn_tpu.ops.two_loop`. The history is a pair of
+``(m, n_pad)`` row stacks plus ``head``/``count`` ring indices held as int32
+tensors on the device, so pushes, resets and the recursion never hand a
+value to the host. ``n_pad`` is the parameter count rounded up to a
+multiple of 128; the zero padding is inert in every dot and axpy.
+
+:func:`two_loop` is the plain version: the path for CPU tensors and the
+oracle for the Hopper kernel in :mod:`lbfgs_ffnn_torch.ops.cuda_two_loop`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+ROW_ALIGN = 128  # floats; keeps every row 512-byte aligned for the kernel
+
+
+def _round_up(x: int, k: int = ROW_ALIGN) -> int:
+    return -(-x // k) * k
+
+
+class RingState(NamedTuple):
+    """Fixed-shape curvature history (see ``lbfgs_ffnn_tpu.ops.two_loop``)."""
+
+    S: torch.Tensor      # (m, n_pad)
+    Y: torch.Tensor      # (m, n_pad)
+    rho: torch.Tensor    # (m,)
+    head: torch.Tensor   # int32 scalar: next physical slot to write
+    count: torch.Tensor  # int32 scalar: number of valid pairs (<= m)
+
+
+def empty_history_state(m: int, n: int, dtype=torch.float32, pair_dtype=None,
+                        device=None) -> RingState:
+    """An empty ring of capacity ``m`` for ``n`` parameters on ``device``.
+    A ``pair_dtype`` other than ``dtype`` (narrow stored pairs) is not
+    ported yet."""
+    if pair_dtype is not None and pair_dtype != dtype:
+        raise NotImplementedError(f"pair_dtype={pair_dtype} is not ported yet")
+    n_pad = _round_up(n)
+    return RingState(
+        S=torch.zeros((m, n_pad), dtype=dtype, device=device),
+        Y=torch.zeros((m, n_pad), dtype=dtype, device=device),
+        rho=torch.zeros((m,), dtype=dtype, device=device),
+        head=torch.zeros((), dtype=torch.int32, device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def _pad_to(v: torch.Tensor, n_pad: int) -> torch.Tensor:
+    return F.pad(v, (0, n_pad - v.shape[0])) if v.shape[0] != n_pad else v
+
+
+def ring_push(hist: RingState, s: torch.Tensor, y: torch.Tensor, rho, accept) -> RingState:
+    """Conditionally push a curvature pair (overwrite-oldest ring semantics).
+
+    Updates ``hist.S``, ``hist.Y`` and ``hist.rho`` IN PLACE and returns a
+    state with new ``head``/``count``. The head row is always rewritten,
+    with either the new pair or its own old contents, selected on the device
+    by ``accept`` (a bool tensor), so the decision never reaches the host.
+    When ``accept`` is false the state is unchanged.
+    """
+    m, n_pad = hist.S.shape
+    idx = hist.head.long().view(1)
+    accept = torch.as_tensor(accept, device=hist.S.device)
+    rho = torch.as_tensor(rho, dtype=hist.rho.dtype, device=hist.rho.device)
+    for buf, row in ((hist.S, s), (hist.Y, y)):
+        old = buf.index_select(0, idx)
+        buf.index_copy_(0, idx, torch.where(accept, _pad_to(row, n_pad).view(1, n_pad), old))
+    hist.rho.index_copy_(0, idx, torch.where(accept, rho, hist.rho.index_select(0, idx)))
+    head = torch.where(accept, (hist.head + 1) % m, hist.head)
+    count = torch.where(accept, torch.clamp(hist.count + 1, max=m), hist.count)
+    return RingState(S=hist.S, Y=hist.Y, rho=hist.rho, head=head, count=count)
+
+
+def ring_reset(hist: RingState, do_reset) -> RingState:
+    """Conditionally drop all pairs (``do_reset`` a bool tensor)."""
+    zero = torch.zeros_like(hist.head)
+    return hist._replace(head=torch.where(do_reset, zero, hist.head),
+                         count=torch.where(do_reset, zero, hist.count))
+
+
+def two_loop(
+    v: torch.Tensor,
+    hist: RingState,
+    *,
+    clamp_gamma: bool = False,
+    gamma_min: float = 1e-6,
+    gamma_max: float = 1e6,
+) -> torch.Tensor:
+    """Compute ``r = H_k @ v`` via the two-loop recursion (not negated).
+
+    With empty history returns ``v`` (identity initial Hessian). The initial
+    scaling is ``gamma = (s^T y)/(y^T y)`` of the newest pair (1 when
+    ``y^T y <= 0``); with ``clamp_gamma``, gamma -> 1 when ``|y^T y| < 1e-12``
+    and is clipped to ``[gamma_min, gamma_max]``.
+
+    The rows are gathered once newest-first; both passes then run over all
+    ``m`` slots with static indices, slots past ``count`` contributing a zero
+    coefficient (on a row of the oldest valid pair, as in the JAX loop
+    form), so no ring index is read on the host.
+    """
+    S, Y, rho, head, count = hist
+    m, n_pad = S.shape
+    n = v.shape[0]
+    c = count.long()
+    j = torch.arange(m, device=S.device)
+    valid = j < c
+    # physical slot of the j-th newest pair; invalid j repeat the oldest one
+    phys = (head.long() - 1 - torch.minimum(j, torch.clamp(c - 1, min=0))) % m
+    Sb, Yb, rb = S.index_select(0, phys), Y.index_select(0, phys), rho.index_select(0, phys)
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+
+    # Backward pass: newest -> oldest.
+    q = _pad_to(v, n_pad)
+    alphas = []
+    for k in range(m):
+        a = torch.where(valid[k], rb[k] * torch.dot(Sb[k], q), zero)
+        q = q - a * Yb[k]
+        alphas.append(a)
+
+    ys = torch.dot(Sb[0], Yb[0])
+    yy = torch.dot(Yb[0], Yb[0])
+    one = torch.ones_like(ys)
+    safe_yy = torch.where(yy == 0, one, yy)
+    if clamp_gamma:
+        gamma = torch.where(torch.abs(yy) < 1e-12, one, ys / safe_yy)
+        gamma = torch.clamp(gamma, gamma_min, gamma_max)
+    else:
+        gamma = torch.where(yy > 0, ys / safe_yy, one)
+    gamma = torch.where(c > 0, gamma, one)
+
+    # Forward pass: oldest -> newest.
+    z = gamma * q
+    for k in reversed(range(m)):
+        b = rb[k] * torch.dot(Yb[k], z)
+        z = z + torch.where(valid[k], alphas[k] - b, zero) * Sb[k]
+    return z[:n]

@@ -1,0 +1,113 @@
+"""Core problem / result types.
+
+Counterpart of :mod:`lbfgs_ffnn_tpu.types`. An objective is a set of plain
+callables ``fun(w, aux) -> scalar`` over one flat parameter tensor; the
+default gradient comes from ``torch.func.grad_and_value`` where the JAX
+package uses ``jax.value_and_grad``. ``aux`` is a tuple of extra operands
+(e.g. the training set ``(x, y)``).
+
+Ported so far: what the MNIST L-BFGS path uses. ``BatchProblem``, the dense
+``hess`` and ``Problem.hvp`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+
+class LinePrefix(NamedTuple):
+    """Carried line-restriction protocol for objectives with a
+    parameter-linear prefix (the MLP's first-layer preactivation).
+
+    ``init(w, aux) -> P`` computes the prefix at the current iterate;
+    ``direction(p, aux) -> B`` its directional increment; the restriction
+    ``restrict(P, B, w, p, aux)(alpha)`` equals ``fun(w + alpha*p, aux)`` up
+    to rounding. ``vag_restrict(P, B, w, p, aux)(alpha) -> (loss, grad)`` is
+    the full value and gradient computed from the prefix, and
+    ``vag_restrict_carry`` additionally returns the post-step prefix
+    ``P + alpha*B`` it computed for its own forward, which the solver carries
+    as the next prefix (see :class:`lbfgs_ffnn_tpu.types.LinePrefix`).
+    """
+
+    init: Callable[..., Any]
+    direction: Callable[..., Any]
+    restrict: Callable[..., Callable[[torch.Tensor], torch.Tensor]]
+    vag_restrict: Optional[Callable[..., Callable]] = None
+    vag_restrict_carry: Optional[Callable[..., Callable]] = None
+
+
+class Problem(NamedTuple):
+    """A smooth unconstrained objective for full-batch solvers.
+
+    All callables take ``(w, aux)``; ``line_fun(w, p, aux)`` returns
+    ``alpha -> fun(w + alpha*p, aux)`` computed with structure, and
+    ``line_prefix`` is its carried form. ``prepare(aux) -> aux`` runs once
+    per solve (identity when None).
+    """
+
+    fun: Callable[..., torch.Tensor]
+    grad: Callable[..., torch.Tensor]
+    value_and_grad: Callable[..., tuple[torch.Tensor, torch.Tensor]]
+    line_fun: Optional[Callable[..., Callable[[torch.Tensor], torch.Tensor]]] = None
+    line_prefix: Optional[LinePrefix] = None
+    prepare: Optional[Callable[[Any], Any]] = None
+
+
+class SolveResult(NamedTuple):
+    """Outcome of a solver run.
+
+    ``loss_history`` / ``gnorm_history`` are ``(max_iters,)`` tensors padded
+    with NaN past ``n_iters``. Counters known on the host (``n_iters``,
+    ``n_fevals``, ``n_gevals``, ``n_host_syncs``) are Python ints.
+    ``n_host_syncs`` counts the points where the solve waited for the device
+    to hand a value to the host.
+    """
+
+    x: torch.Tensor
+    n_iters: int
+    converged: torch.Tensor  # bool
+    final_loss: torch.Tensor
+    final_gnorm: torch.Tensor
+    loss_history: torch.Tensor
+    gnorm_history: torch.Tensor
+    metric_history: Optional[torch.Tensor] = None
+    n_fevals: Optional[int] = None  # objective (forward) evaluations
+    n_gevals: Optional[int] = None  # full-gradient evaluations
+    n_hevals: Optional[int] = None  # Hessian-vector products
+    n_matvecs: Optional[int] = None  # Krylov operator applications
+    n_host_syncs: Optional[int] = None
+
+
+def prepared_aux(problem: Problem, aux: Any) -> Any:
+    """Apply the problem's one-time aux preparation (identity when absent)."""
+    return problem.prepare(aux) if problem.prepare is not None else aux
+
+
+def make_problem(
+    fun: Callable[..., torch.Tensor],
+    grad: Optional[Callable[..., torch.Tensor]] = None,
+    line_fun: Optional[Callable[..., Callable]] = None,
+    line_prefix: Optional[LinePrefix] = None,
+    prepare: Optional[Callable[[Any], Any]] = None,
+) -> Problem:
+    """Build a :class:`Problem` from a scalar objective ``fun(w, aux)``; the
+    gradient defaults to ``torch.func`` autodiff."""
+    if grad is None:
+        grad = torch.func.grad(fun)
+        _grad_and_value = torch.func.grad_and_value(fun)
+
+        def value_and_grad(w, aux=()):
+            g, f = _grad_and_value(w, aux)
+            return f, g
+    else:
+        def value_and_grad(w, aux=(), _f=fun, _g=grad):
+            return _f(w, aux), _g(w, aux)
+
+    if line_fun is None and line_prefix is not None:
+        # The per-call restriction is derivable from the carried protocol.
+        def line_fun(w, p, aux, _lp=line_prefix):
+            return _lp.restrict(_lp.init(w, aux), _lp.direction(p, aux), w, p, aux)
+    return Problem(fun=fun, grad=grad, value_and_grad=value_and_grad,
+                   line_fun=line_fun, line_prefix=line_prefix, prepare=prepare)
