@@ -2,14 +2,16 @@
 
 The JAX package stays the reference; this package mirrors its module paths
 and public names and is tested against it on the same inputs. It imports
-torch and numpy only. Ported so far: the MNIST L-BFGS main path (IDX data,
-the MLP objective with its carried line prefix, the Armijo line search, the
-curvature ring, the two-loop recursion as plain torch and as a hand-written
-Hopper kernel, and the armijo L-BFGS solver).
+torch and numpy only. Ported so far: the MNIST L-BFGS main path and the
+deep-net Fashion-MNIST path (IDX data and both loaders, the MLP objective
+with its carried line prefix, the Armijo line search, the curvature ring
+with f32 or bf16 pairs, the two-loop recursion as plain torch and as two
+hand-written Hopper kernels with their size dispatch, the armijo L-BFGS
+solver, gradient descent, the recorder, the launcher and the MNIST runner).
 """
 
 from lbfgs_ffnn_torch.types import Problem, SolveResult, make_problem
-from lbfgs_ffnn_torch.solvers import LBFGSOptions, lbfgs
+from lbfgs_ffnn_torch.solvers import GDOptions, LBFGSOptions, gradient_descent, lbfgs
 
 __version__ = "0.1.0"
 
@@ -17,6 +19,8 @@ __all__ = [
     "Problem",
     "SolveResult",
     "make_problem",
+    "GDOptions",
+    "gradient_descent",
     "LBFGSOptions",
     "lbfgs",
 ]

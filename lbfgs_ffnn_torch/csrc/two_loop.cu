@@ -1,9 +1,6 @@
-// L-BFGS two-loop recursion r = H v in one persistent cooperative kernel.
-//
-// Replaces the TPU kernel lbfgs_ffnn_tpu/ops/pallas_two_loop.py::
-// _kernel_resident (reached through _two_loop_pallas_padded), which pulls
-// the whole (S, Y) history into VMEM with two bulk DMAs and runs both passes
-// from there on one core. The same function, computed for Hopper:
+// L-BFGS two-loop recursion r = H v: two persistent cooperative kernels,
+// each templated on the stored pair type (float or __nv_bfloat16); all
+// arithmetic is f32.
 //
 //   backward, newest -> oldest:  a_i = rho_i s_i.q ;  q -= a_i y_i
 //   gamma = s.y / y.y of the newest pair (1 if count == 0 or y.y <= 0;
@@ -11,44 +8,63 @@
 //   z = gamma q
 //   forward, oldest -> newest:   b = rho_i y_i.z ;  z += (a_i - b) s_i
 //
-// Design. One block's shared memory (227 KB) cannot hold the headline's
-// working vector (101,888 floats padded, 407 KB), so the vector is split:
-// each block owns one contiguous slice of q (later z) in shared memory for
-// the whole call, and the 2*count sequential stages run inside one launch.
-// A stage is: partial dot over the block's slice -> block reduction ->
-// partials[block] -> grid.sync() -> every block sums all partials in the
-// same fixed order (so every block, and every run, gets the bitwise same
-// scalar; no atomics) -> local axpy on the slice. The newest pair's s.y and
-// y.y ride along in the first stage. That is 2*count grid barriers and one
-// launch per direction, where a per-op port issues about 4m kernels.
+// They replace the TPU kernels of lbfgs_ffnn_tpu/ops/pallas_two_loop.py:
+//   * kResident replaces _kernel_resident (K1), which pulls the whole (S, Y)
+//     history into VMEM with two bulk DMAs and runs both passes from there.
+//     Here every block copies its column slice of all `count` pairs into
+//     shared memory with cp.async at the start, then runs the 2*count stages
+//     from shared memory. It takes rings whose slices fit: about 29 MB of
+//     q + S + Y over a one-block-per-SM grid of an H100.
+//   * kStreaming replaces _kernel (K2), which keeps q on-chip and streams the
+//     (s_i, y_i) rows from HBM, double-buffered one pair ahead. Here every
+//     block keeps two (s, y) slice buffers in shared memory; at the start of
+//     stage t it issues the cp.async copies of stage t+1's pair into the
+//     other buffer, so the HBM latency of the next pair hides behind this
+//     stage's dot, grid barrier and axpy. bf16 rows arrive as 8 values per
+//     16-byte copy and are upcast in registers.
 //
-// Bound on this card: each call reads 4*count*n*4 bytes of history (16 MB at
-// m = 10, n = 101,770). The whole 8 MB ring of the headline fits in the
-// 50 MB L2 and stays there between iterations, so the stages are bound by
-// L2 latency and bandwidth and by the grid barrier, not by HBM; q never
-// leaves the SMs. Staging rows with cp.async/TMA and merging one stage's
-// axpy with the next stage's dot are left for later.
+// Shared design. One block's shared memory (227 KB) cannot hold the working
+// vector (242,816 floats padded on the deep net, 971 KB), so the vector is
+// split: each block owns one contiguous slice of q (later z) in shared
+// memory for the whole call, and the 2*count sequential stages run inside
+// one launch. A stage is: partial dot over the block's slice -> block
+// reduction -> partials[block] -> grid.sync() -> every block sums all
+// partials in the same fixed order (so every block, and every run, gets the
+// bitwise same scalar; no atomics) -> local axpy on the slice. The newest
+// pair's s.y and y.y ride along in the first stage. Each thread copies,
+// reads and writes only its own 16-byte chunks of every shared buffer, so
+// the buffers need no block barrier: a thread's cp.async wait covers all it
+// reads.
+//
+// Bound on this card: each call reads 2*count*n_pad*sizeof(pair) bytes of
+// history once, plus v and out: at m = 100 on the deep net (n_pad 242,816)
+// 196.2 MB f32 = 58.6 us, 99.1 MB bf16 = 29.6 us at 3.35 TB/s. The 2*count
+// grid barriers (about 1 us each) are expected to set the pace instead.
 //
 // The grid is sized so that every block is resident at once (a condition
-// of grid.sync()): occupancy x SMs, capped by the number of 1024-float
-// slices. head, count and rho are read on the device; the host never
-// reads them. Launches on the caller's stream; allocates nothing.
+// of grid.sync()): occupancy x SMs, capped by the number of 1024-element
+// slices. head, count and rho are read on the device; the host never reads
+// them. Launches on the caller's stream; allocates nothing.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSliceUnit = kThreads * 4;  // one float4 per thread
+constexpr int kSliceUnit = kThreads * 4;  // grid cap: one float4 of q per thread
+constexpr int kSliceAlign = 8;            // slices hold whole 16-byte chunks of f32 and bf16
 constexpr int kMaxM = 1024;               // alphas live in shared memory
 constexpr int kNumPartials = 3;           // values reduced per stage (at most)
 
+enum Kind { kResident = 0, kStreaming = 1 };
+
 struct Params {
   const float* v;      // (n_pad,)
-  const float* S;      // (m, n_pad)
-  const float* Y;      // (m, n_pad)
+  const void* S;       // (m, n_pad) pair type
+  const void* Y;       // (m, n_pad) pair type
   const float* rho;    // (m,)
   const int* head;     // scalar
   const int* count;    // scalar
@@ -56,11 +72,70 @@ struct Params {
   float* partials;     // (2, kNumPartials, gridDim.x) scratch
   int n_pad;
   int m;
-  int slice;           // floats per block, a multiple of 4
+  int slice;           // elements per block, a multiple of kSliceAlign
   int clamp_gamma;
   float gamma_min;
   float gamma_max;
 };
+
+// One 16-byte chunk of stored pair values, upcast to f32.
+template <typename T>
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  static constexpr int kN = 4;
+  __device__ static void load(const float* p, float (&f)[kN]) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void load(const __nv_bfloat16* p, float (&f)[kN]) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 w = __bfloat1622float2(h[k]);
+      f[2 * k] = w.x;
+      f[2 * k + 1] = w.y;
+    }
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float (&f)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; k += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p + k);
+    f[k] = x.x; f[k + 1] = x.y; f[k + 2] = x.z; f[k + 3] = x.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_f32(float* p, const float (&f)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; k += 4)
+    *reinterpret_cast<float4*>(p + k) = make_float4(f[k], f[k + 1], f[k + 2], f[k + 3]);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Sum NV values over the block; the totals are valid in thread 0.
 template <int NV>
@@ -116,46 +191,99 @@ __device__ void grid_sum(float (&vals)[NV], const Params& p, int buf,
   for (int c = 0; c < NV; ++c) vals[c] = bcast[c];
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
+template <typename T, int kKind>
 __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
+  using C = Chunk<T>;
+  constexpr int kN = C::kN;
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 q4[];  // this block's slice of q, then z
+  extern __shared__ float4 smem[];  // q slice, then the (s, y) slice buffers
   __shared__ float alphas[kMaxM];
   __shared__ float red[kNumPartials * kWarps];
   __shared__ float bcast[kNumPartials];
 
-  const int start = blockIdx.x * p.slice;
-  const int len4 = max(0, min(p.slice, p.n_pad - start)) / 4;
+  const int slice = p.slice;
+  const int start = blockIdx.x * slice;
+  const int nchunk = max(0, min(slice, p.n_pad - start)) / kN;
   const int m = p.m;
   const int head = *p.head;
   const int count = min(*p.count, m);  // <= m by the ring's invariant
-  const float4* v4 = reinterpret_cast<const float4*>(p.v + start);
-  float4* out4 = reinterpret_cast<float4*>(p.out + start);
+  float* q = reinterpret_cast<float*>(smem);
+  T* rows = reinterpret_cast<T*>(q + slice);
+  const T* S = static_cast<const T*>(p.S) + start;
+  const T* Y = static_cast<const T*>(p.Y) + start;
 
-  // Each thread touches only the float4s k = tid, tid + kThreads, ... of
-  // the slice in every loop below, so q4 needs no block barrier of its own.
-  for (int k = threadIdx.x; k < len4; k += kThreads) q4[k] = v4[k];
+  // Stage t of 2*count runs the backward pass on the t-th newest pair, then
+  // the forward pass from the oldest pair up: stage t uses pair j(t).
+  auto pair_of = [&](int t) { return t < count ? t : 2 * count - 1 - t; };
+  auto slot = [&](int j) { return ((head - 1 - j) % m + m) % m; };  // j-th newest
+  // Shared (s, y) slices of stage t's pair: s at +0, y at +slice.
+  auto buf = [&](int t) -> T* {
+    const int b = kKind == kResident ? pair_of(t) : (t & 1);
+    return rows + (size_t)b * 2 * slice;
+  };
+  // Copy stage t's pair into its buffer: this thread's chunks, one group.
+  auto fetch = [&](int t) {
+    const size_t off = (size_t)slot(pair_of(t)) * p.n_pad;
+    T* dst = buf(t);
+    for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+      cp_async16(dst + c * kN, S + off + c * kN);
+      cp_async16(dst + slice + c * kN, Y + off + c * kN);
+    }
+    cp_async_commit();
+  };
 
-  int buf = 0;
+  if (kKind == kResident) {
+    for (int t = 0; t < count; ++t) fetch(t);
+  } else if (count > 0) {
+    fetch(0);
+  }
+  for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+    float x[kN];
+    load_f32(p.v + start + c * kN, x);
+    store_f32(q + c * kN, x);
+  }
+
+  int pbuf = 0;
   float gamma = 1.f;
-  for (int j = 0; j < count; ++j) {  // backward: newest -> oldest
-    const int i = ((head - 1 - j) % m + m) % m;
-    const float4* s4 = reinterpret_cast<const float4*>(p.S + (size_t)i * p.n_pad + start);
-    const float4* y4 = reinterpret_cast<const float4*>(p.Y + (size_t)i * p.n_pad + start);
-    float a;
-    if (j == 0) {
-      float vals[3] = {0.f, 0.f, 0.f};  // s.q, s.y, y.y
-      for (int k = threadIdx.x; k < len4; k += kThreads) {
-        const float4 s = s4[k], y = y4[k];
-        vals[0] += dot4(s, q4[k]);
-        vals[1] += dot4(s, y);
-        vals[2] += dot4(y, y);
+  for (int t = 0; t < 2 * count; ++t) {
+    const bool bwd = t < count;
+    const int i = slot(pair_of(t));
+    if (kKind == kStreaming) {
+      if (t + 1 < 2 * count) {
+        fetch(t + 1);  // the next pair streams in behind this stage
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-      grid_sum<3>(vals, p, buf, grid, red, bcast);
-      a = p.rho[i] * vals[0];
+    } else if (t == 0) {
+      cp_async_wait<0>();
+    }
+    const T* s_row = buf(t);
+    const T* y_row = s_row + slice;
+    const T* dot_row = bwd ? s_row : y_row;   // backward s.q, forward y.z
+    const T* axpy_row = bwd ? y_row : s_row;  // backward y, forward s
+
+    float dot;
+    if (t == 0) {  // the newest pair: s.q, s.y and y.y in one sweep
+      float vals[3] = {0.f, 0.f, 0.f};
+      for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+        float s[kN], y[kN], x[kN];
+        C::load(s_row + c * kN, s);
+        C::load(y_row + c * kN, y);
+        load_f32(q + c * kN, x);
+        float sq = 0.f, sy = 0.f, yy = 0.f;
+#pragma unroll
+        for (int k = 0; k < kN; ++k) {
+          sq += s[k] * x[k];
+          sy += s[k] * y[k];
+          yy += y[k] * y[k];
+        }
+        vals[0] += sq;
+        vals[1] += sy;
+        vals[2] += yy;
+      }
+      grid_sum<3>(vals, p, pbuf, grid, red, bcast);
+      dot = vals[0];
       const float ys = vals[1], yy = vals[2];
       if (p.clamp_gamma) {
         gamma = fabsf(yy) < 1e-12f ? 1.f : ys / (yy == 0.f ? 1.f : yy);
@@ -166,53 +294,75 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
       }
     } else {
       float vals[1] = {0.f};
-      for (int k = threadIdx.x; k < len4; k += kThreads) vals[0] += dot4(s4[k], q4[k]);
-      grid_sum<1>(vals, p, buf, grid, red, bcast);
-      a = p.rho[i] * vals[0];
+      for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+        float r[kN], x[kN];
+        C::load(dot_row + c * kN, r);
+        load_f32(q + c * kN, x);
+        float d = 0.f;
+#pragma unroll
+        for (int k = 0; k < kN; ++k) d += r[k] * x[k];
+        vals[0] += d;
+      }
+      grid_sum<1>(vals, p, pbuf, grid, red, bcast);
+      dot = vals[0];
     }
-    buf ^= 1;
-    if (threadIdx.x == 0) alphas[count - 1 - j] = a;
-    for (int k = threadIdx.x; k < len4; k += kThreads) {
-      const float4 y = y4[k];
-      float4 q = q4[k];
-      q.x -= a * y.x; q.y -= a * y.y; q.z -= a * y.z; q.w -= a * y.w;
-      q4[k] = q;
+    pbuf ^= 1;
+
+    float coef;
+    if (bwd) {
+      const float a = p.rho[i] * dot;
+      if (threadIdx.x == 0) alphas[count - 1 - t] = a;
+      coef = -a;
+    } else {
+      coef = alphas[t - count] - p.rho[i] * dot;
     }
+    const float scale = t == count - 1 ? gamma : 1.f;  // end of backward: z = gamma q
+    for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+      float r[kN], x[kN];
+      C::load(axpy_row + c * kN, r);
+      load_f32(q + c * kN, x);
+#pragma unroll
+      for (int k = 0; k < kN; ++k) x[k] = (x[k] + coef * r[k]) * scale;
+      store_f32(q + c * kN, x);
+    }
+    if (t == count - 1) __syncthreads();  // alphas (thread 0) are read by all
   }
 
-  for (int k = threadIdx.x; k < len4; k += kThreads) {
-    float4 q = q4[k];
-    q.x *= gamma; q.y *= gamma; q.z *= gamma; q.w *= gamma;
-    q4[k] = q;
+  for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+    float x[kN];
+    load_f32(q + c * kN, x);
+    store_f32(p.out + start + c * kN, x);
   }
-  __syncthreads();  // alphas written by thread 0 above
-
-  for (int li = 0; li < count; ++li) {  // forward: oldest -> newest
-    const int i = ((head - count + li) % m + m) % m;
-    const float4* s4 = reinterpret_cast<const float4*>(p.S + (size_t)i * p.n_pad + start);
-    const float4* y4 = reinterpret_cast<const float4*>(p.Y + (size_t)i * p.n_pad + start);
-    float vals[1] = {0.f};
-    for (int k = threadIdx.x; k < len4; k += kThreads) vals[0] += dot4(y4[k], q4[k]);
-    grid_sum<1>(vals, p, buf, grid, red, bcast);
-    buf ^= 1;
-    const float coef = alphas[li] - p.rho[i] * vals[0];
-    for (int k = threadIdx.x; k < len4; k += kThreads) {
-      const float4 s = s4[k];
-      float4 z = q4[k];
-      z.x += coef * s.x; z.y += coef * s.y; z.z += coef * s.z; z.w += coef * s.w;
-      q4[k] = z;
-    }
-  }
-
-  for (int k = threadIdx.x; k < len4; k += kThreads) out4[k] = q4[k];
 }
 
 static int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Launch geometry for (n_pad, m) on the current device: the grid, the
-// floats per block and the dynamic shared memory. Returns a cudaError_t.
-extern "C" int two_loop_config(int n_pad, int m, int* grid_out, int* slice_out) {
-  if (n_pad <= 0 || n_pad % 4 != 0 || m <= 0 || m > kMaxM) return cudaErrorInvalidValue;
+static const void* kernel_of(int kind, int pair_bytes) {
+  if (pair_bytes == 4)
+    return kind == kResident ? reinterpret_cast<const void*>(two_loop_kernel<float, kResident>)
+                             : reinterpret_cast<const void*>(two_loop_kernel<float, kStreaming>);
+  if (pair_bytes == 2)
+    return kind == kResident
+               ? reinterpret_cast<const void*>(two_loop_kernel<__nv_bfloat16, kResident>)
+               : reinterpret_cast<const void*>(two_loop_kernel<__nv_bfloat16, kStreaming>);
+  return nullptr;
+}
+
+// Dynamic shared memory per element of a block's slice: q, plus all m
+// pairs (resident) or two pairs (streaming) of (s, y).
+static size_t smem_per_element(int kind, int pair_bytes, int m) {
+  return sizeof(float) + (size_t)(kind == kResident ? 2 * m : 4) * pair_bytes;
+}
+
+// Launch geometry of `kind` for (pair_bytes, n_pad, m) on the current
+// device: the grid, the elements per block and the dynamic shared memory in
+// bytes. Returns a cudaError_t; cudaErrorInvalidValue when the slices of a
+// one-block-per-SM grid do not fit a block's shared memory.
+extern "C" int two_loop_config(int kind, int pair_bytes, int n_pad, int m, int* grid_out,
+                               int* slice_out, int* smem_out) {
+  const void* kern = kernel_of(kind, pair_bytes);
+  if (kern == nullptr || n_pad <= 0 || n_pad % kSliceAlign != 0 || m <= 0 || m > kMaxM)
+    return cudaErrorInvalidValue;
   int dev, sms, coop;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -223,38 +373,44 @@ extern "C" int two_loop_config(int n_pad, int m, int* grid_out, int* slice_out) 
   int optin;
   cudaFuncAttributes fa;
   if ((e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess) return e;
-  if ((e = cudaFuncGetAttributes(&fa, two_loop_kernel)) != cudaSuccess) return e;
+  if ((e = cudaFuncGetAttributes(&fa, kern)) != cudaSuccess) return e;
   const int max_dyn = optin - (int)fa.sharedSizeBytes;
-  if ((e = cudaFuncSetAttribute(two_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                max_dyn)) != cudaSuccess) return e;
+  if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_dyn)) != cudaSuccess)
+    return e;
+  const size_t per = smem_per_element(kind, pair_bytes, m);
   // Occupancy at the largest slice any grid of >= one block per SM uses.
-  const int slice1 = ceil_div(ceil_div(n_pad, sms), 4) * 4;
-  if (slice1 * (int)sizeof(float) > max_dyn) return cudaErrorInvalidValue;  // n_pad too large
+  const int slice1 = ceil_div(ceil_div(n_pad, sms), kSliceAlign) * kSliceAlign;
+  if ((size_t)slice1 * per > (size_t)max_dyn) return cudaErrorInvalidValue;
   int occ = 0;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, two_loop_kernel, kThreads,
-                                                         slice1 * sizeof(float))) != cudaSuccess) return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kThreads, slice1 * per)) != cudaSuccess)
+    return e;
   if (occ < 1) return cudaErrorInvalidConfiguration;
   int grid = occ * sms;
   const int slices = ceil_div(n_pad, kSliceUnit);
   if (grid > slices) grid = slices;
   // A grid below one block per SM gets bigger slices, one block per SM.
-  const int slice = ceil_div(ceil_div(n_pad, grid), 4) * 4;
-  if (slice * (int)sizeof(float) > max_dyn) return cudaErrorInvalidValue;
+  const int slice = ceil_div(ceil_div(n_pad, grid), kSliceAlign) * kSliceAlign;
+  if ((size_t)slice * per > (size_t)max_dyn) return cudaErrorInvalidValue;
   *grid_out = grid;
   *slice_out = slice;
+  *smem_out = (int)(slice * per);
   return cudaSuccess;
 }
 
-// r = H v for f32 v, S, Y, rho. `partials` holds 2 * 3 * grid floats.
-// Returns the launch's cudaError_t (0 on success).
-extern "C" int two_loop_f32(const void* v, const void* S, const void* Y, const void* rho,
-                            const void* head, const void* count, void* out, void* partials,
-                            int n_pad, int m, int grid, int slice, int clamp_gamma,
-                            float gamma_min, float gamma_max, void* stream) {
+// r = H v with f32 v, rho, out and (S, Y) of pair_bytes 4 (f32) or 2
+// (bf16). `partials` holds 2 * 3 * grid floats. Returns the launch's
+// cudaError_t (0 on success).
+extern "C" int two_loop_launch(int kind, int pair_bytes, const void* v, const void* S,
+                               const void* Y, const void* rho, const void* head,
+                               const void* count, void* out, void* partials, int n_pad, int m,
+                               int grid, int slice, int smem, int clamp_gamma, float gamma_min,
+                               float gamma_max, void* stream) {
+  const void* kern = kernel_of(kind, pair_bytes);
+  if (kern == nullptr) return cudaErrorInvalidValue;
   Params p;
   p.v = static_cast<const float*>(v);
-  p.S = static_cast<const float*>(S);
-  p.Y = static_cast<const float*>(Y);
+  p.S = S;
+  p.Y = Y;
   p.rho = static_cast<const float*>(rho);
   p.head = static_cast<const int*>(head);
   p.count = static_cast<const int*>(count);
@@ -267,8 +423,7 @@ extern "C" int two_loop_f32(const void* v, const void* S, const void* Y, const v
   p.gamma_min = gamma_min;
   p.gamma_max = gamma_max;
   void* args[] = {&p};
-  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(two_loop_kernel), dim3(grid),
-                                              dim3(kThreads), args, (size_t)slice * sizeof(float),
+  cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(kThreads), args, (size_t)smem,
                                               static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();

@@ -4,7 +4,12 @@ from lbfgs_ffnn_torch.data.idx import (
     read_idx_labels_u8,
     write_idx_u8,
 )
-from lbfgs_ffnn_torch.data.datasets import Dataset, load_mnist, synthetic_images_for_labels
+from lbfgs_ffnn_torch.data.datasets import (
+    Dataset,
+    load_fashion_mnist,
+    load_mnist,
+    synthetic_images_for_labels,
+)
 
 __all__ = [
     "read_idx_images",
@@ -12,6 +17,7 @@ __all__ = [
     "read_idx_labels_u8",
     "write_idx_u8",
     "Dataset",
+    "load_fashion_mnist",
     "load_mnist",
     "synthetic_images_for_labels",
 ]

@@ -1,4 +1,4 @@
-"""Dataset assembly: MNIST with a synthetic-image fallback.
+"""Dataset assembly: MNIST / Fashion-MNIST with a synthetic-image fallback.
 
 Counterpart of :mod:`lbfgs_ffnn_tpu.data.datasets`. When the image blob is
 absent the images are synthesized conditioned on the real label stream
@@ -94,20 +94,39 @@ def _load_split(
     return x, y, True
 
 
+def _load(root: Path | str, sep: str, train_size: int, test_size: int, seed: int) -> Dataset:
+    """Both splits from ``<split>-{images,labels}<sep>idx{3,1}-ubyte``."""
+    root = Path(root)
+    train_x, train_y, syn1 = _load_split(
+        root / f"train-images{sep}idx3-ubyte", root / f"train-labels{sep}idx1-ubyte",
+        train_size, seed, 0,
+    )
+    test_x, test_y, syn2 = _load_split(
+        root / f"t10k-images{sep}idx3-ubyte", root / f"t10k-labels{sep}idx1-ubyte",
+        test_size, seed, 1,
+    )
+    return Dataset(train_x, train_y, test_x, test_y, synthetic_images=syn1 or syn2)
+
+
 def load_mnist(
     root: Path | str,
     train_size: int = 60000,
     test_size: int = 10000,
     seed: int = 123,
 ) -> Dataset:
-    """MNIST from the IDX files in ``root``; no default root is assumed."""
-    root = Path(root)
-    train_x, train_y, syn1 = _load_split(
-        root / "train-images.idx3-ubyte", root / "train-labels.idx1-ubyte",
-        train_size, seed, 0,
-    )
-    test_x, test_y, syn2 = _load_split(
-        root / "t10k-images.idx3-ubyte", root / "t10k-labels.idx1-ubyte",
-        test_size, seed, 1,
-    )
-    return Dataset(train_x, train_y, test_x, test_y, synthetic_images=syn1 or syn2)
+    """MNIST from the IDX files in ``root`` (``train-labels.idx1-ubyte``
+    etc.); no default root is assumed."""
+    return _load(root, ".", train_size, test_size, seed)
+
+
+def load_fashion_mnist(
+    root: Path | str,
+    train_size: int = 60000,
+    test_size: int = 10000,
+    seed: int = 456,
+) -> Dataset:
+    """Fashion-MNIST from the IDX files in ``root``, under their dashed
+    names (``train-labels-idx1-ubyte`` etc.); no default root is assumed.
+    Its own prototype seed keeps synthetic Fashion images apart from
+    synthetic MNIST ones."""
+    return _load(root, "-", train_size, test_size, seed)

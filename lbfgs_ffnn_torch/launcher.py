@@ -1,0 +1,252 @@
+"""Unified training API: config + launcher.
+
+Counterpart of :mod:`lbfgs_ffnn_tpu.launcher` (reference:
+src/unified_optimization.hpp:26-48, src/unified_launcher.hpp):
+``add_layer -> build_network -> set_data -> train(solver, config) -> test()``.
+
+Backend styles select solver policy as in the JAX package: ``"cuda"`` is
+Armijo with interpolation for L-BFGS and zero biases at init, ``"cpu"``
+Wolfe for L-BFGS and random biases. The launcher runs on ``device``, which
+is ``"cuda"`` unless the caller passes ``"cpu"``; without a card it raises
+and never moves to the CPU on its own.
+
+Timing: a short warm-up solve (``WARMUP_ITERS`` iterations) first pays the
+one-time costs of a process (the nvcc build of the kernels, cuBLAS set-up),
+then the timed solve runs; on CUDA its wall time comes from CUDA events
+around it. The JAX package's warm-up is a whole solve because it compiles;
+eager PyTorch has nothing to compile per solve.
+
+Ported: the ``"gd"`` and ``"lbfgs"`` (Armijo) solvers. Not ported yet, and
+raising ``NotImplementedError`` with their ROADMAP item when asked for:
+``"sgd"``, ``"slbfgs"``, the Wolfe search (so L-BFGS in the ``"cpu"``
+style), ``timed_chunks > 0``, ``compute_dtype``, ``prefix_dtype``, the
+``*_input_dtype`` copies and ``ls_alpha_init="warm"``. The config fields
+only those read (batch size, decay, S-LBFGS sizes, ...) return with them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from lbfgs_ffnn_torch.data.datasets import Dataset
+from lbfgs_ffnn_torch.objectives.mlp import MLPSpec, evaluate, mlp_init, mlp_problem, mlp_spec
+from lbfgs_ffnn_torch.recorder import History, history_from_result, write_history_csv
+from lbfgs_ffnn_torch.solvers.gd import GDOptions, gradient_descent
+from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, lbfgs
+from lbfgs_ffnn_torch.types import SolveResult
+
+WARMUP_ITERS = 2
+
+# solver -> ROADMAP queue 1 item that ports it
+_UNPORTED_SOLVERS = {"sgd": 12, "slbfgs": 11}
+# config field -> (its value when unused, ROADMAP queue 1 item that ports it)
+_UNPORTED_FIELDS = {
+    "timed_chunks": (0, 10),
+    "compute_dtype": (None, 3),
+    "grad_input_dtype": (None, 3),
+    "line_input_dtype": (None, 3),
+    "fun_input_dtype": (None, 3),
+    "prefix_dtype": (None, 6),
+    "ls_alpha_init": ("fixed", 6),
+}
+
+
+@dataclasses.dataclass
+class UnifiedConfig:
+    """The fields of the JAX package's UnifiedConfig that the ported solvers
+    read, with its names and defaults except ``two_loop_impl`` ("cuda": the
+    Hopper kernels on CUDA tensors and the plain loop on CPU ones; "plain":
+    the plain loop everywhere), plus those that raise until ported."""
+
+    name: str = "Experiment"
+    max_iters: int = 100
+    tolerance: float = 1e-4
+    learning_rate: float = 0.01
+    momentum: float = 0.0
+    m_param: int = 10
+    log_interval: int = 10
+    reset_params: bool = True
+    seed: int = 123
+    two_loop_impl: str = "cuda"
+    write_csv: bool = True
+    line_search: str = ""        # L-BFGS override: "" = backend style
+    pair_dtype: Optional[str] = None  # "bfloat16": the curvature ring in bf16
+    # Not ported yet: anything but these values raises.
+    timed_chunks: int = 0
+    compute_dtype: Optional[str] = None
+    prefix_dtype: Optional[str] = None
+    grad_input_dtype: Optional[str] = None
+    line_input_dtype: Optional[str] = None
+    fun_input_dtype: Optional[str] = None
+    ls_alpha_init: str = "fixed"
+
+
+@dataclasses.dataclass
+class TrainReport:
+    result: SolveResult
+    history: History
+    wall_time_s: float
+    csv_path: Optional[str]
+    train_eval: dict
+    warmup_iters: int = 0  # iterations of the warm-up solve before the timed one
+
+    @property
+    def ms_per_iter(self) -> float:
+        n = max(int(self.result.n_iters), 1)
+        return self.wall_time_s * 1e3 / n
+
+
+def _check_ported(solver: str, c: UnifiedConfig) -> None:
+    if solver in _UNPORTED_SOLVERS:
+        raise NotImplementedError(f"solver {solver!r} is not ported yet "
+                                  f"(ROADMAP queue 1 item {_UNPORTED_SOLVERS[solver]})")
+    if solver not in ("gd", "lbfgs"):
+        raise ValueError(f"unknown solver {solver!r}")
+    for name, (unused, item) in _UNPORTED_FIELDS.items():
+        if getattr(c, name) != unused:
+            raise NotImplementedError(f"UnifiedConfig({name}={getattr(c, name)!r}) is not "
+                                      f"ported yet (ROADMAP queue 1 item {item})")
+
+
+class Launcher:
+    """MLP training launcher (reference: src/unified_launcher.hpp)."""
+
+    def __init__(self, backend_style: str = "cpu", dtype=torch.float32,
+                 device: str | torch.device = "cuda", out_dir: str | Path = "."):
+        if backend_style not in ("cpu", "cuda"):
+            raise ValueError(backend_style)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Launcher(device='cuda') needs an NVIDIA GPU and "
+                               "torch.cuda.is_available() is false; pass device='cpu'")
+        self.backend_style = backend_style
+        self.dtype = dtype
+        self.out_dir = Path(out_dir)
+        self._dims: list[int] = []
+        self._acts: list[str] = []
+        self.spec: Optional[MLPSpec] = None
+        self.weights: Optional[torch.Tensor] = None
+        self._x = self._y = self._tx = self._ty = None
+
+    # -- network assembly ---------------------------------------------------
+    def add_layer(self, d_in: int, d_out: int, activation: str) -> "Launcher":
+        if not self._dims:
+            self._dims = [d_in]
+        elif self._dims[-1] != d_in:
+            raise ValueError(f"layer input {d_in} != previous output {self._dims[-1]}")
+        self._dims.append(d_out)
+        self._acts.append(activation)
+        return self
+
+    def build_network(self, seed: int = 123) -> "Launcher":
+        self.spec = mlp_spec(self._dims, self._acts)
+        self._problem = mlp_problem(self.spec)
+        self._bind_params(seed)
+        return self
+
+    def _bind_params(self, seed: int) -> None:
+        bias = "random" if self.backend_style == "cpu" else "zeros"
+        self.weights = mlp_init(self.spec, torch.Generator().manual_seed(seed),
+                                dtype=self.dtype, bias_init=bias, device=self.device)
+
+    def set_data(self, dataset: Dataset) -> "Launcher":
+        def put(a):
+            return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+
+        self._x, self._y = put(dataset.train_x), put(dataset.train_y)
+        self._tx, self._ty = put(dataset.test_x), put(dataset.test_y)
+        return self
+
+    # -- training -----------------------------------------------------------
+    def train(self, solver: str, config: UnifiedConfig, verbose: bool = True) -> TrainReport:
+        if self.spec is None or self._x is None:
+            raise RuntimeError("build_network() and set_data() first")
+        _check_ported(solver, config)
+        if config.reset_params:
+            # (reference: src/unified_launcher.hpp:49-53)
+            self._bind_params(config.seed)
+
+        warm = self._solve(solver, config, min(config.max_iters, WARMUP_ITERS))
+        result, wall = self._timed(lambda: self._solve(solver, config, config.max_iters))
+
+        self.weights = result.x
+        history = history_from_result(result, wall)
+        csv_path = None
+        if config.write_csv:
+            self.out_dir.mkdir(parents=True, exist_ok=True)
+            csv_path = str(self.out_dir / f"{config.name}_history.csv")
+            write_history_csv(csv_path, history, config.log_interval)
+
+        train_eval = evaluate(self.spec, self.weights, self._x, self._y)
+        if verbose:
+            n_it = max(int(result.n_iters), 1)
+            print(
+                f"[{config.name}] {solver}: iters={int(result.n_iters)} "
+                f"loss={float(result.final_loss):.6g} "
+                f"gnorm={float(result.final_gnorm):.4g} "
+                f"time={wall:.3f}s ({wall * 1e3 / n_it:.3f} ms/iter) "
+                f"train_acc={train_eval['accuracy']:.2f}%"
+            )
+        return TrainReport(result, history, wall, csv_path, train_eval, warm.n_iters)
+
+    def _timed(self, run) -> tuple[SolveResult, float]:
+        """``run()`` and its wall time in seconds: CUDA events on a CUDA
+        device, the host clock otherwise; both end with the solve done."""
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = run()
+            end.record()
+            end.synchronize()
+            return result, start.elapsed_time(end) / 1e3
+        t0 = time.perf_counter()
+        result = run()
+        return result, time.perf_counter() - t0
+
+    def _solve(self, solver: str, c: UnifiedConfig, max_iters: int) -> SolveResult:
+        aux = (self._x, self._y)
+        if solver == "gd":
+            return gradient_descent(self._problem, self.weights, aux,
+                                    self._gd_opts(c)._replace(max_iters=max_iters))
+        return lbfgs(self._problem, self.weights, aux,
+                     self._lbfgs_opts(c)._replace(max_iters=max_iters))
+
+    def _lbfgs_opts(self, c: UnifiedConfig) -> LBFGSOptions:
+        ls = c.line_search or ("armijo" if self.backend_style == "cuda" else "wolfe")
+        if ls != "armijo":
+            raise NotImplementedError(
+                f"L-BFGS line_search={ls!r} is not ported yet (Wolfe: ROADMAP queue 1 item 13)")
+        # The reference CUDA backend's trial budget (minimizer_base.cuh).
+        return LBFGSOptions(
+            max_iters=c.max_iters, tol=c.tolerance,
+            m=c.m_param if c.m_param > 0 else 10,
+            line_search="armijo", ls_max_iters=20,
+            two_loop_impl=c.two_loop_impl, pair_dtype=c.pair_dtype,
+        )
+
+    def _gd_opts(self, c: UnifiedConfig) -> GDOptions:
+        # UnifiedGD_CPU disables line search (unified_optimization.hpp:177);
+        # CudaGD adds momentum (cuda/gd.cuh:78-88).
+        return GDOptions(
+            max_iters=c.max_iters, tol=c.tolerance, step_size=c.learning_rate,
+            momentum=c.momentum, use_line_search=False,
+        )
+
+    # -- evaluation ----------------------------------------------------------
+    def test(self, verbose: bool = True) -> dict:
+        """Evaluate on the held-out split (reference: Network::test /
+        UnifiedLauncher::evaluate)."""
+        out = evaluate(self.spec, self.weights, self._tx, self._ty)
+        if verbose:
+            print(
+                f"=== Test Results ===\nSamples: {out['n']}\n"
+                f"Accuracy: {out['accuracy']:.4g}% ({out['correct']}/{out['n']})\n"
+                f"Total MSE: {out['total_mse']:.6g}\n===================="
+            )
+        return out

@@ -1,11 +1,14 @@
-"""The two-loop recursion as one hand-written Hopper kernel.
+"""The two-loop recursion as hand-written Hopper kernels, and their dispatch.
 
-Counterpart of :mod:`lbfgs_ffnn_tpu.ops.pallas_two_loop`: the TPU kernel
-``_kernel_resident`` becomes the cooperative CUDA kernel in
-``csrc/two_loop.cu`` (its header says how the design maps to the card).
-:func:`two_loop_cuda` has the signature of
-:func:`lbfgs_ffnn_torch.ops.two_loop.two_loop`. For a CPU tensor it calls
-that plain version; for a CUDA tensor it launches the kernel or raises.
+Counterpart of :mod:`lbfgs_ffnn_tpu.ops.pallas_two_loop`: the TPU kernels
+``_kernel_resident`` and ``_kernel`` become the cooperative CUDA kernels
+``cuda-cooperative`` (the history slices resident in shared memory) and
+``cuda-streaming`` (the rows streamed one pair ahead) in ``csrc/two_loop.cu``,
+whose header says how each design maps to the card. :func:`kernel_dispatch`
+is the size policy of ``pallas_dispatch``; :func:`two_loop_cuda` has the
+signature of :func:`lbfgs_ffnn_torch.ops.two_loop.two_loop`. For a CPU
+tensor it calls that plain version; for a CUDA tensor it launches the kernel
+the dispatch names (through :func:`launch`) or raises.
 """
 
 from __future__ import annotations
@@ -17,47 +20,71 @@ import torch
 from lbfgs_ffnn_torch import _build
 from lbfgs_ffnn_torch.ops.two_loop import RingState, two_loop
 
-# The kernel keeps one slice of the working vector per block in shared
-# memory; above this padded length the slices of a one-block-per-SM grid
-# outgrow what a block may hold on smaller cards, so dispatch refuses it.
-_MAX_N_PAD = 4 * 1024 * 1024
+COOPERATIVE, STREAMING = "cuda-cooperative", "cuda-streaming"
+_KIND = {COOPERATIVE: 0, STREAMING: 1}  # Kind in the source
+_PAIR_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_M = 1024  # alphas live in shared memory (kMaxM in the source)
 _N_PARTIALS = 3  # kNumPartials in the source
 
+# Shared memory a one-block-per-SM grid can hold on an H100 SXM (132 SMs,
+# 227 KB a block may opt into, less the kernels' 4.2 KB of static arrays,
+# rounded down): both kernels keep every block's slice of the working vector
+# and of its (s, y) buffers there, so this bounds the rings they take.
+_GRID_SMEM_BYTES = 132 * 220 * 1024
+
+
+def fits(impl: str, n_pad: int, m: int, pair_bytes: int) -> bool:
+    """Whether ``impl``'s slices fit the shared memory of a one-block-per-SM
+    grid: per element of a block's slice, q in f32 plus all m (s, y) pairs
+    (cooperative) or two (streaming) in the pair type (the source's
+    ``smem_per_element``)."""
+    per_element = 4 + (2 * m if impl == COOPERATIVE else 4) * pair_bytes
+    return n_pad * per_element <= _GRID_SMEM_BYTES
+
 
 def kernel_dispatch(n_pad: int, m: int, dtype, pair_dtype=None) -> tuple[str, str]:
-    """Which implementation :func:`two_loop_cuda` uses for a CUDA ring of
-    padded row length ``n_pad``, capacity ``m``, working ``dtype`` and
-    stored-pair ``pair_dtype`` (defaults to ``dtype``).
+    """Which kernel :func:`two_loop_cuda` launches for a CUDA ring of padded
+    row length ``n_pad``, capacity ``m``, working ``dtype`` and stored-pair
+    ``pair_dtype`` (defaults to ``dtype``).
 
-    Returns ``(impl, reason)``: ``("cuda-cooperative", "")`` when the kernel
-    takes the ring, else ``("unsupported", reason)``, and the wrapper then
-    raises with the reason instead of substituting another path.
+    Returns ``(impl, reason)``: ``("cuda-cooperative", "")`` wherever its
+    slices of the whole ring fit shared memory, else ``("cuda-streaming",
+    "")`` where the streaming kernel's fit, else ``("unsupported",
+    reason)``; the wrapper then raises with the reason instead of
+    substituting another path. The order is measured: where both kernels
+    take a ring the cooperative one was the faster on an H100 (chip_smoke.py
+    phase "stream", table in PERF.md).
     """
     pd = pair_dtype if pair_dtype is not None else dtype
     if dtype != torch.float32:
         return "unsupported", f"dtype {dtype} != torch.float32"
-    if pd != torch.float32:
-        return "unsupported", f"pair dtype {pd} != torch.float32 (narrow pairs are not ported yet)"
-    if n_pad % 4:
-        return "unsupported", f"padded row length {n_pad} is not a multiple of 4"
-    if n_pad > _MAX_N_PAD:
-        return "unsupported", (f"padded row length {n_pad} > {_MAX_N_PAD}: the per-block "
-                               "slices of the working vector no longer fit shared memory")
+    if pd not in _PAIR_DTYPES:
+        return "unsupported", f"pair dtype {pd} not in (torch.float32, torch.bfloat16)"
+    if n_pad % 8:
+        return "unsupported", f"padded row length {n_pad} is not a multiple of 8"
     if not 1 <= m <= _MAX_M:
         return "unsupported", f"history size m={m} outside [1, {_MAX_M}]"
-    return "cuda-cooperative", ""
+    pb = pd.itemsize
+    if fits(COOPERATIVE, n_pad, m, pb):
+        return COOPERATIVE, ""
+    if fits(STREAMING, n_pad, m, pb):
+        return STREAMING, ""
+    return "unsupported", (
+        f"padded row length {n_pad}: the streaming kernel's slices of q and of two "
+        f"(s, y) pairs need more than the {_GRID_SMEM_BYTES} bytes of shared memory of "
+        "one block per SM (the blocked kernel, K3, is not ported yet)")
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("two_loop")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.two_loop_config.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        ip = ctypes.POINTER(i)
+        lib.two_loop_config.argtypes = [i, i, i, i, ip, ip, ip]
         lib.two_loop_config.restype = i
-        lib.two_loop_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                     ctypes.c_float, ctypes.c_float, p]
-        lib.two_loop_f32.restype = i
+        lib.two_loop_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                        ctypes.c_float, ctypes.c_float, p]
+        lib.two_loop_launch.restype = i
         lib.two_loop_error_string.argtypes = [i]
         lib.two_loop_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -70,18 +97,25 @@ def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
                            f"({lib.two_loop_error_string(rc).decode()})")
 
 
-_CONFIGS: dict[tuple[int, int, int], tuple[int, int]] = {}
+_CONFIGS: dict[tuple, tuple[int, int, int]] = {}
 
 
-def _config(lib: ctypes.CDLL, device_index: int, n_pad: int, m: int) -> tuple[int, int]:
-    """(grid, floats per block) for this device and shape, queried once."""
-    key = (device_index, n_pad, m)
+def _config(lib: ctypes.CDLL, device_index: int, impl: str, pair_bytes: int, n_pad: int,
+            m: int) -> tuple[int, int, int]:
+    """(grid, elements per block, dynamic shared bytes), queried once per
+    device, kernel and shape."""
+    key = (device_index, impl, pair_bytes, n_pad, m)
     if key not in _CONFIGS:
-        grid, slice_ = ctypes.c_int(), ctypes.c_int()
-        _check(lib, lib.two_loop_config(n_pad, m, ctypes.byref(grid), ctypes.byref(slice_)),
-               "two_loop_config")
-        _CONFIGS[key] = (grid.value, slice_.value)
+        grid, slice_, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        _check(lib, lib.two_loop_config(_KIND[impl], pair_bytes, n_pad, m, ctypes.byref(grid),
+                                        ctypes.byref(slice_), ctypes.byref(smem)),
+               f"two_loop_config({impl}, n_pad={n_pad}, m={m}, pair bytes {pair_bytes})")
+        _CONFIGS[key] = (grid.value, slice_.value, smem.value)
     return _CONFIGS[key]
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
 
 
 def two_loop_cuda(
@@ -95,28 +129,57 @@ def two_loop_cuda(
     """``r = H_k @ v`` by the two-loop recursion (not negated), as
     :func:`~lbfgs_ffnn_torch.ops.two_loop.two_loop`.
 
-    A CPU ``v`` goes to the plain version. A CUDA ``v`` launches the
-    cooperative kernel on the current stream, adds one to
-    ``two_loop_cuda.LAUNCHES``, and never reads ``head``, ``count`` or
-    ``rho`` back to the host; anything the kernel does not take raises.
+    A CPU ``v`` goes to the plain version. A CUDA ``v`` launches the kernel
+    :func:`kernel_dispatch` names for the ring; a ring no kernel takes
+    raises with the dispatch's reason.
     """
     if v.device.type == "cpu":
         return two_loop(v, hist, clamp_gamma=clamp_gamma,
                         gamma_min=gamma_min, gamma_max=gamma_max)
     if v.device.type != "cuda":
         raise ValueError(f"two_loop_cuda takes CPU or CUDA tensors, got {v.device}")
+    impl, reason = kernel_dispatch(hist.S.shape[1], hist.S.shape[0], v.dtype, hist.S.dtype)
+    if impl == "unsupported":
+        raise ValueError(f"two_loop_cuda cannot run this ring: {reason}")
+    return launch(impl, v, hist, clamp_gamma=clamp_gamma, gamma_min=gamma_min,
+                  gamma_max=gamma_max)
+
+
+def launch(
+    impl: str,
+    v: torch.Tensor,
+    hist: RingState,
+    *,
+    clamp_gamma: bool = False,
+    gamma_min: float = 1e-6,
+    gamma_max: float = 1e6,
+) -> torch.Tensor:
+    """Launch kernel ``impl`` (``"cuda-cooperative"`` or
+    ``"cuda-streaming"``) on CUDA tensors, on the current stream, and add
+    one to ``two_loop_cuda.LAUNCHES[impl]``. :func:`two_loop_cuda` calls it
+    with the dispatch's choice; the dispatch's own measurement calls it with
+    each kernel in turn. Never reads ``head``, ``count`` or ``rho`` back to
+    the host; anything the kernel does not take raises.
+    """
+    if impl not in _KIND:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {sorted(_KIND)}")
     S, Y, rho, head, count = hist
     m, n_pad = S.shape
-    impl, reason = kernel_dispatch(n_pad, m, v.dtype, S.dtype)
-    if impl != "cuda-cooperative":
-        raise ValueError(f"two_loop_cuda cannot run this ring: {reason}")
     n = v.shape[0]
+    if v.device.type != "cuda" or v.dtype != torch.float32:
+        raise ValueError(f"v must be a float32 CUDA tensor, got {v.dtype} on {v.device}")
+    if S.dtype not in _PAIR_DTYPES:
+        raise ValueError(f"pair dtype {S.dtype} not in (torch.float32, torch.bfloat16)")
+    if n_pad % 8 or not 1 <= m <= _MAX_M:
+        raise ValueError(f"ring of m={m} rows of {n_pad}: need n_pad % 8 == 0 and "
+                         f"1 <= m <= {_MAX_M}")
     if v.dim() != 1 or n > n_pad:
         raise ValueError(f"v must be 1-D with at most {n_pad} entries, got {tuple(v.shape)}")
     if Y.shape != S.shape or rho.shape != (m,) or head.shape != () or count.shape != ():
         raise ValueError("ring shapes disagree: S, Y (m, n_pad); rho (m,); head, count scalars")
-    if Y.dtype != torch.float32 or rho.dtype != torch.float32:
-        raise ValueError(f"Y and rho must be float32, got {Y.dtype}, {rho.dtype}")
+    if Y.dtype != S.dtype or rho.dtype != torch.float32:
+        raise ValueError(f"Y must have S's dtype {S.dtype} and rho float32, got {Y.dtype}, "
+                         f"{rho.dtype}")
     if head.dtype != torch.int32 or count.dtype != torch.int32:
         raise ValueError(f"head and count must be int32, got {head.dtype}, {count.dtype}")
     for name, t in (("S", S), ("Y", Y), ("rho", rho), ("head", head), ("count", count)):
@@ -124,22 +187,25 @@ def two_loop_cuda(
             raise ValueError(f"ring {name} is on {t.device}, v on {v.device}")
         if not t.is_contiguous():
             raise ValueError(f"ring {name} must be contiguous")
+    if not (_aligned(S) and _aligned(Y)):
+        raise ValueError("ring S and Y must start on a 16-byte boundary")
 
     lib = _lib()
+    pb = S.dtype.itemsize
     with torch.cuda.device(v.device):
-        grid, slice_ = _config(lib, v.device.index, n_pad, m)
-        v_pad = torch.nn.functional.pad(v, (0, n_pad - n)).contiguous()
+        grid, slice_, smem = _config(lib, v.device.index, impl, pb, n_pad, m)
+        v_pad = torch.nn.functional.pad(v, (0, n_pad - n))  # a fresh, aligned copy
         out = torch.empty(n_pad, dtype=v.dtype, device=v.device)
         partials = torch.empty(2 * _N_PARTIALS * grid, dtype=torch.float32, device=v.device)
-        rc = lib.two_loop_f32(
-            v_pad.data_ptr(), S.data_ptr(), Y.data_ptr(), rho.data_ptr(),
+        rc = lib.two_loop_launch(
+            _KIND[impl], pb, v_pad.data_ptr(), S.data_ptr(), Y.data_ptr(), rho.data_ptr(),
             head.data_ptr(), count.data_ptr(), out.data_ptr(), partials.data_ptr(),
-            n_pad, m, grid, slice_, int(clamp_gamma), gamma_min, gamma_max,
+            n_pad, m, grid, slice_, smem, int(clamp_gamma), gamma_min, gamma_max,
             torch.cuda.current_stream().cuda_stream,
         )
-    _check(lib, rc, "two_loop_f32 launch")
-    two_loop_cuda.LAUNCHES += 1
+    _check(lib, rc, f"two_loop_launch({impl})")
+    two_loop_cuda.LAUNCHES[impl] += 1
     return out[:n]
 
 
-two_loop_cuda.LAUNCHES = 0
+two_loop_cuda.LAUNCHES = {COOPERATIVE: 0, STREAMING: 0}

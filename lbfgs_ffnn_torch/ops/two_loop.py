@@ -4,10 +4,15 @@ Counterpart of :mod:`lbfgs_ffnn_tpu.ops.two_loop`. The history is a pair of
 ``(m, n_pad)`` row stacks plus ``head``/``count`` ring indices held as int32
 tensors on the device, so pushes, resets and the recursion never hand a
 value to the host. ``n_pad`` is the parameter count rounded up to a
-multiple of 128; the zero padding is inert in every dot and axpy.
+multiple of 128; the zero padding is inert in every dot and axpy. The rows
+may be stored narrower than the solver (``pair_dtype=torch.bfloat16``, half
+the ring's bytes): they are cast once, at :func:`ring_push`, and upcast
+before every dot and axpy, so rho and the recursion stay in the solver dtype
+(the JAX package pads bf16 rows to 2048 for its TPU tiles; here 128 serves
+both widths).
 
 :func:`two_loop` is the plain version: the path for CPU tensors and the
-oracle for the Hopper kernel in :mod:`lbfgs_ffnn_torch.ops.cuda_two_loop`.
+oracle for the Hopper kernels in :mod:`lbfgs_ffnn_torch.ops.cuda_two_loop`.
 """
 
 from __future__ import annotations
@@ -27,24 +32,22 @@ def _round_up(x: int, k: int = ROW_ALIGN) -> int:
 class RingState(NamedTuple):
     """Fixed-shape curvature history (see ``lbfgs_ffnn_tpu.ops.two_loop``)."""
 
-    S: torch.Tensor      # (m, n_pad)
-    Y: torch.Tensor      # (m, n_pad)
-    rho: torch.Tensor    # (m,)
+    S: torch.Tensor      # (m, n_pad), pair dtype
+    Y: torch.Tensor      # (m, n_pad), pair dtype
+    rho: torch.Tensor    # (m,), solver dtype
     head: torch.Tensor   # int32 scalar: next physical slot to write
     count: torch.Tensor  # int32 scalar: number of valid pairs (<= m)
 
 
 def empty_history_state(m: int, n: int, dtype=torch.float32, pair_dtype=None,
                         device=None) -> RingState:
-    """An empty ring of capacity ``m`` for ``n`` parameters on ``device``.
-    A ``pair_dtype`` other than ``dtype`` (narrow stored pairs) is not
-    ported yet."""
-    if pair_dtype is not None and pair_dtype != dtype:
-        raise NotImplementedError(f"pair_dtype={pair_dtype} is not ported yet")
+    """An empty ring of capacity ``m`` for ``n`` parameters on ``device``,
+    its (S, Y) rows stored in ``pair_dtype`` (defaults to ``dtype``)."""
+    pd = pair_dtype if pair_dtype is not None else dtype
     n_pad = _round_up(n)
     return RingState(
-        S=torch.zeros((m, n_pad), dtype=dtype, device=device),
-        Y=torch.zeros((m, n_pad), dtype=dtype, device=device),
+        S=torch.zeros((m, n_pad), dtype=pd, device=device),
+        Y=torch.zeros((m, n_pad), dtype=pd, device=device),
         rho=torch.zeros((m,), dtype=dtype, device=device),
         head=torch.zeros((), dtype=torch.int32, device=device),
         count=torch.zeros((), dtype=torch.int32, device=device),
@@ -62,7 +65,8 @@ def ring_push(hist: RingState, s: torch.Tensor, y: torch.Tensor, rho, accept) ->
     state with new ``head``/``count``. The head row is always rewritten,
     with either the new pair or its own old contents, selected on the device
     by ``accept`` (a bool tensor), so the decision never reaches the host.
-    When ``accept`` is false the state is unchanged.
+    When ``accept`` is false the state is unchanged. The rows are cast to
+    the ring's pair dtype here, after padding, as in the JAX package.
     """
     m, n_pad = hist.S.shape
     idx = hist.head.long().view(1)
@@ -70,7 +74,8 @@ def ring_push(hist: RingState, s: torch.Tensor, y: torch.Tensor, rho, accept) ->
     rho = torch.as_tensor(rho, dtype=hist.rho.dtype, device=hist.rho.device)
     for buf, row in ((hist.S, s), (hist.Y, y)):
         old = buf.index_select(0, idx)
-        buf.index_copy_(0, idx, torch.where(accept, _pad_to(row, n_pad).view(1, n_pad), old))
+        new = _pad_to(row, n_pad).to(buf.dtype).view(1, n_pad)
+        buf.index_copy_(0, idx, torch.where(accept, new, old))
     hist.rho.index_copy_(0, idx, torch.where(accept, rho, hist.rho.index_select(0, idx)))
     head = torch.where(accept, (hist.head + 1) % m, hist.head)
     count = torch.where(accept, torch.clamp(hist.count + 1, max=m), hist.count)
@@ -102,7 +107,8 @@ def two_loop(
     The rows are gathered once newest-first; both passes then run over all
     ``m`` slots with static indices, slots past ``count`` contributing a zero
     coefficient (on a row of the oldest valid pair, as in the JAX loop
-    form), so no ring index is read on the host.
+    form), so no ring index is read on the host. Narrow rows are upcast to
+    ``v``'s dtype when gathered, before any dot or axpy.
     """
     S, Y, rho, head, count = hist
     m, n_pad = S.shape
@@ -112,7 +118,9 @@ def two_loop(
     valid = j < c
     # physical slot of the j-th newest pair; invalid j repeat the oldest one
     phys = (head.long() - 1 - torch.minimum(j, torch.clamp(c - 1, min=0))) % m
-    Sb, Yb, rb = S.index_select(0, phys), Y.index_select(0, phys), rho.index_select(0, phys)
+    Sb = S.index_select(0, phys).to(v.dtype)
+    Yb = Y.index_select(0, phys).to(v.dtype)
+    rb = rho.index_select(0, phys)
     zero = torch.zeros((), dtype=v.dtype, device=v.device)
 
     # Backward pass: newest -> oldest.

@@ -1,8 +1,10 @@
-"""Shared solver utilities: history recording and the result record.
-Counterpart of :mod:`lbfgs_ffnn_tpu.solvers.common` (`drive_chunks` and the
-jit cache are not ported yet)."""
+"""Shared solver utilities: history recording, the result record and the
+full-f32 guard. Counterpart of :mod:`lbfgs_ffnn_tpu.solvers.common`
+(`drive_chunks` and the jit cache are not ported yet)."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -42,3 +44,17 @@ def finalize(x, k, converged, loss, gnorm, loss_h, gnorm_h, metric_h=None,
         n_matvecs=n_matvecs,
         n_host_syncs=n_host_syncs,
     )
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Full-f32 matmuls (no TF32) for the duration of a solve: switches off
+    ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32`` and restores the caller's settings."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -13,18 +13,21 @@ iteration. Directions, ring pushes and resets, alpha and the carried line
 prefix stay on the device. ``SolveResult.n_host_syncs`` counts the syncs.
 
 The solve runs in full float32 on CUDA: TF32 matmuls are switched off for
-its duration (``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32``) and the caller's settings restored.
+its duration (:func:`~lbfgs_ffnn_torch.solvers.common.full_f32`).
+``pair_dtype="bfloat16"`` stores the curvature ring in bf16 (half its bytes
+and half the two-loop's history traffic); rho = 1/(y.s) comes from the
+solver-dtype pair before the push narrows it, and the recursion runs in the
+solver dtype.
 
 Not ported yet (each raises ``NotImplementedError``): the Wolfe and batched
 Armijo searches, ``ls_alpha_init="warm"``, HVP curvature pairs, the compact
-and sharded two-loops, narrow ``pair_dtype``/``prefix_dtype`` with
-``prefix_refresh``, ``mesh``. ``lbfgs_chunked`` is not ported yet either.
+and sharded two-loops, pair dtypes other than bfloat16, ``prefix_dtype``
+with ``prefix_refresh``, ``mesh``. ``lbfgs_chunked`` is not ported yet
+either.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, NamedTuple
 
 import torch
@@ -34,7 +37,7 @@ from lbfgs_ffnn_torch.ops.linesearch import armijo_quad_line_search
 from lbfgs_ffnn_torch.ops.two_loop import (
     RingState, empty_history_state, ring_push, ring_reset, two_loop,
 )
-from lbfgs_ffnn_torch.solvers.common import finalize, init_history, record
+from lbfgs_ffnn_torch.solvers.common import finalize, full_f32, init_history, record
 from lbfgs_ffnn_torch.types import Problem, SolveResult, prepared_aux
 
 
@@ -75,11 +78,16 @@ def _check_options(opts: LBFGSOptions) -> None:
             raise NotImplementedError(f"LBFGSOptions({name}={val!r}) is not ported yet")
         if val not in ported:
             raise ValueError(f"unknown {name} {val!r}")
-    for name in ("pair_dtype", "prefix_dtype"):
-        if getattr(opts, name) is not None:
-            raise NotImplementedError(f"LBFGSOptions({name}=...) is not ported yet")
+    if opts.pair_dtype not in (None, "bfloat16"):
+        raise NotImplementedError(f"LBFGSOptions(pair_dtype={opts.pair_dtype!r}) is not "
+                                  "ported yet: the narrow ring is bfloat16")
+    if opts.prefix_dtype is not None:
+        raise NotImplementedError("LBFGSOptions(prefix_dtype=...) is not ported yet")
     if opts.prefix_refresh not in (None, 0):
         raise NotImplementedError("LBFGSOptions(prefix_refresh=...) is not ported yet")
+
+
+_PAIR_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
 
 class _State(NamedTuple):
@@ -112,7 +120,8 @@ def _init_state(problem: Problem, opts: LBFGSOptions, x0, aux) -> _State:
     loss_h, gnorm_h = init_history(opts.max_iters, x0.dtype, x0.device)
     return _State(
         k=0, x=x0, f=f0, g=g0, gnorm=torch.linalg.norm(g0),
-        hist=empty_history_state(opts.m, x0.shape[0], x0.dtype, device=x0.device),
+        hist=empty_history_state(opts.m, x0.shape[0], x0.dtype,
+                                 pair_dtype=_PAIR_DTYPES[opts.pair_dtype], device=x0.device),
         loss_h=loss_h, gnorm_h=gnorm_h, nf=1, ng=1,
         prefix=problem.line_prefix.init(x0, aux) if _use_prefix(problem, opts) else (),
     )
@@ -207,18 +216,6 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
     return body
 
 
-@contextlib.contextmanager
-def _full_f32():
-    """Full-f32 matmuls (no TF32) for the duration of a solve."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
 def lbfgs(
     problem: Problem,
     x0: torch.Tensor,
@@ -231,7 +228,7 @@ def lbfgs(
     if mesh is not None:
         raise NotImplementedError("lbfgs(mesh=...) is not ported yet")
     body = _make_body(problem, opts)
-    with _full_f32(), torch.no_grad():
+    with full_f32(), torch.no_grad():
         aux = prepared_aux(problem, aux)
         s = _init_state(problem, opts, x0, aux)
         while _not_done(s, opts):

@@ -1,15 +1,22 @@
-"""The Hopper two-loop kernel against its plain torch version on the card.
+"""The Hopper two-loop kernels against their plain torch version on the card.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 Skips itself where ``torch.cuda.is_available()`` is false."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from lbfgs_ffnn_torch.ops.cuda_two_loop import two_loop_cuda
+from lbfgs_ffnn_torch.ops.cuda_two_loop import (
+    COOPERATIVE, STREAMING, kernel_dispatch, launch, two_loop_cuda,
+)
 from lbfgs_ffnn_torch.ops.two_loop import empty_history_state, ring_push, two_loop
+
+PAIR_DTYPES = pytest.mark.parametrize("pair_dtype", [torch.float32, torch.bfloat16],
+                                      ids=["f32", "bf16"])
 
 
 @pytest.fixture
@@ -19,9 +26,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ring(m, n, k, dev, seed=0):
+def _ring(m, n, k, dev, pair_dtype=torch.float32, seed=0):
     rng = np.random.default_rng(seed)
-    hist = empty_history_state(m, n, torch.float32, device=dev)
+    hist = empty_history_state(m, n, torch.float32, pair_dtype, device=dev)
     for _ in range(k):
         s = rng.normal(size=n)
         y = torch.tensor(rng.normal(size=n) + 0.5 * s, dtype=torch.float32, device=dev)
@@ -30,23 +37,43 @@ def _ring(m, n, k, dev, seed=0):
     return hist
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,clamp", [(10, 0, 1000, False), (10, 4, 101770, False),
-                                         (10, 10, 101770, True), (10, 13, 101770, False),
-                                         (4, 9, 257, True), (100, 100, 242762, False)])
-def test_kernel_matches_plain_on_card(cuda, m, k, n, clamp):
-    """Bound: max|kernel - plain| <= 1e-4 * max|plain| (f32, the two reduce
-    in different orders); two calls are bitwise equal; one launch each."""
-    hist = _ring(m, n, k, cuda)
-    v = torch.tensor(np.random.default_rng(1).normal(size=n), dtype=torch.float32, device=cuda)
-    before = two_loop_cuda.LAUNCHES
-    r_k = two_loop_cuda(v, hist, clamp_gamma=clamp)
-    r_k2 = two_loop_cuda(v, hist, clamp_gamma=clamp)
+def _check_against_plain(hist, n, clamp, dev, impl=None):
+    """Bound: max|kernel - plain| <= 1e-4 * max|plain| (f32 arithmetic on the
+    same ring, reduced in different orders); two calls are bitwise equal;
+    exactly two launches of the expected kernel and none of the other."""
+    m, n_pad = hist.S.shape
+    want = impl or kernel_dispatch(n_pad, m, torch.float32, hist.S.dtype)[0]
+    v = torch.tensor(np.random.default_rng(1).normal(size=n), dtype=torch.float32, device=dev)
+    before = dict(two_loop_cuda.LAUNCHES)
+    call = two_loop_cuda if impl is None else functools.partial(launch, impl)
+    r_k = call(v, hist, clamp_gamma=clamp)
+    r_k2 = call(v, hist, clamp_gamma=clamp)
     torch.cuda.synchronize()
-    assert two_loop_cuda.LAUNCHES == before + 2
+    assert two_loop_cuda.LAUNCHES == {k: c + 2 * (k == want) for k, c in before.items()}
     r_p = two_loop(v, hist, clamp_gamma=clamp)
     assert r_k.shape == (n,) and torch.equal(r_k, r_k2)
     assert float((r_k - r_p).abs().max()) <= 1e-4 * float(r_p.abs().max())
+
+
+@pytest.mark.cuda
+@PAIR_DTYPES
+@pytest.mark.parametrize("m,k,n,clamp", [(10, 0, 1000, False), (10, 4, 101770, False),
+                                         (10, 10, 101770, True), (10, 13, 101770, False),
+                                         (4, 9, 257, True), (100, 100, 242762, False),
+                                         (100, 130, 242762, True)])
+def test_kernel_matches_plain_on_card(cuda, m, k, n, clamp, pair_dtype):
+    """The kernel the dispatch picks, on f32 and bf16 rings: empty, partial,
+    full and wrapped, the deep net at m=100 among them."""
+    _check_against_plain(_ring(m, n, k, cuda, pair_dtype), n, clamp, cuda)
+
+
+@pytest.mark.cuda
+@PAIR_DTYPES
+@pytest.mark.parametrize("impl", [COOPERATIVE, STREAMING])
+@pytest.mark.parametrize("k", [0, 3, 13])
+def test_each_kernel_on_a_ring_both_take(cuda, impl, k, pair_dtype):
+    """Both kernels forced onto the MNIST m=10 ring, which either takes."""
+    _check_against_plain(_ring(10, 101770, k, cuda, pair_dtype), 101770, False, cuda, impl)
 
 
 @pytest.mark.cuda
@@ -59,3 +86,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         two_loop_cuda(torch.ones(hist.S.shape[1] + 1, device=cuda), hist)
     with pytest.raises(ValueError):
         two_loop_cuda(v, hist._replace(head=hist.head.long()))
+    with pytest.raises(ValueError):  # a pair type no kernel takes
+        two_loop_cuda(v, _ring(5, 300, 2, cuda, torch.float16))
+    with pytest.raises(ValueError):
+        launch("cuda-blocked", v, hist)
+    with pytest.raises(RuntimeError):  # the resident slices of m=100 do not fit
+        launch(COOPERATIVE, torch.ones(242762, device=cuda), _ring(100, 242762, 1, cuda))

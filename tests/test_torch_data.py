@@ -91,7 +91,8 @@ def test_port_imports_without_jax():
         "sys.modules['lbfgs_ffnn_tpu'] = None\n"
         "import lbfgs_ffnn_torch, lbfgs_ffnn_torch.data, lbfgs_ffnn_torch.objectives\n"
         "import lbfgs_ffnn_torch.ops, lbfgs_ffnn_torch.ops.cuda_two_loop, lbfgs_ffnn_torch.solvers\n"
-        "import lbfgs_ffnn_torch._build\n"
+        "import lbfgs_ffnn_torch._build, lbfgs_ffnn_torch.launcher, lbfgs_ffnn_torch.recorder\n"
+        "import lbfgs_ffnn_torch.solvers.gd, lbfgs_ffnn_torch.experiments.run_mnist\n"
         "assert not any(k.startswith(('jax', 'lbfgs_ffnn_tpu')) and sys.modules[k] is not None\n"
         "               for k in sys.modules)\n"
     )

@@ -1,0 +1,180 @@
+"""The port's launcher, recorder and runner against the JAX package's: the
+same data and weights (carried across with ``params_from_numpy``,
+``reset_params=False``) through ``Launcher.train``, compared on the CSV's
+Loss and GradNorm columns (f64: rtol 1e-9; TimeMs is a wall time and is not
+compared). The runner's ``main(argv)`` runs at a tiny size on the CPU, from
+IDX label files written here."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lbfgs_ffnn_tpu.data.datasets import Dataset as JDataset
+from lbfgs_ffnn_tpu.launcher import Launcher as JLauncher, UnifiedConfig as JConfig
+from lbfgs_ffnn_tpu.recorder import History as JHistory, read_history_csv as j_read
+from lbfgs_ffnn_tpu.recorder import write_history_csv as j_write
+from lbfgs_ffnn_torch.data.datasets import Dataset
+from lbfgs_ffnn_torch.data.idx import write_idx_u8
+from lbfgs_ffnn_torch.experiments import run_mnist
+from lbfgs_ffnn_torch.launcher import Launcher, UnifiedConfig
+from lbfgs_ffnn_torch.objectives.mlp import params_from_numpy
+from lbfgs_ffnn_torch.recorder import History, read_history_csv, write_history_csv
+
+DIMS, ACTS = [20, 16, 12, 8, 4], ["relu", "relu", "relu", "linear"]
+
+
+def _data(seed=0, n=200, n_test=40):
+    rng = np.random.default_rng(seed)
+    x = rng.random((n + n_test, DIMS[0]))
+    y = np.eye(DIMS[-1])[rng.integers(0, DIMS[-1], n + n_test)]
+    return x[:n], y[:n], x[n:], y[n:]
+
+
+def _build(launcher, ds):
+    for d_in, d_out, act in zip(DIMS[:-1], DIMS[1:], ACTS):
+        launcher.add_layer(d_in, d_out, act)
+    return launcher.build_network().set_data(ds)
+
+
+def _both(style="cuda"):
+    parts = _data()
+    w0 = np.random.default_rng(1).normal(size=sum(
+        a * b + b for a, b in zip(DIMS[:-1], DIMS[1:]))) * 0.4
+    jl = _build(JLauncher(style, dtype=jnp.float64), JDataset(*parts))
+    tl = _build(Launcher(style, dtype=torch.float64, device="cpu"), Dataset(*parts))
+    jl.weights = jnp.asarray(w0)
+    tl.weights = params_from_numpy(tl.spec, w0, dtype=torch.float64)
+    return jl, tl
+
+
+@pytest.mark.parametrize("solver,extra", [
+    ("gd", dict(learning_rate=0.02, momentum=0.9)),
+    ("lbfgs", dict(m_param=5)),
+    ("lbfgs", dict(m_param=5, pair_dtype="bfloat16")),
+])
+def test_train_matches_jax_launcher(solver, extra, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # both write <name>_history.csv into the cwd
+    jl, tl = _both()
+    kw = dict(max_iters=25, tolerance=1e-12, log_interval=1, reset_params=False, **extra)
+    rj = jl.train(solver, JConfig(name="J", **kw), verbose=False)
+    rt = tl.train(solver, UnifiedConfig(name="T", **kw), verbose=False)
+    hj, ht = j_read(rj.csv_path), read_history_csv(rt.csv_path)
+    assert ht.n == hj.n == 25 and rt.csv_path.endswith("T_history.csv")
+    np.testing.assert_allclose(ht.loss, hj.loss, rtol=1e-9)
+    np.testing.assert_allclose(ht.gnorm, hj.gnorm, rtol=1e-9)
+    assert ht.time_ms[-1] == pytest.approx(rt.wall_time_s * 1e3)
+    np.testing.assert_allclose(tl.weights.numpy(), np.asarray(jl.weights), rtol=1e-8, atol=1e-10)
+    assert rt.train_eval["correct"] == rj.train_eval["correct"]
+    assert tl.test(verbose=False)["correct"] == jl.test(verbose=False)["correct"]
+    assert rt.warmup_iters == 2
+
+
+def test_reset_params_rebinds_seeded_weights(tmp_path):
+    _, tl = _both()
+    tl.out_dir = tmp_path
+    cfg = UnifiedConfig(name="R", max_iters=3, m_param=5)
+    r1 = tl.train("lbfgs", cfg, verbose=False)
+    r2 = tl.train("lbfgs", cfg, verbose=False)
+    assert torch.equal(r1.result.x, r2.result.x)
+    r3 = tl.train("lbfgs", UnifiedConfig(name="R", max_iters=3, m_param=5, reset_params=False),
+                  verbose=False)
+    assert not torch.equal(r3.result.x, r2.result.x)  # went on from r2's weights
+
+
+def test_styles_bind_biases():
+    """The cuda style binds zero biases, the cpu style random ones."""
+    parts = _data()
+    for style, zero in (("cuda", True), ("cpu", False)):
+        tl = _build(Launcher(style, device="cpu"), Dataset(*parts))
+        b0 = tl.weights[DIMS[0] * DIMS[1]: DIMS[0] * DIMS[1] + DIMS[1]]
+        assert bool((b0 == 0).all()) == zero
+
+
+def test_launcher_runs_on_cuda_unless_told_otherwise():
+    if torch.cuda.is_available():
+        assert Launcher("cuda").device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            Launcher("cuda")
+    assert Launcher("cuda", device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("solver,kw", [
+    ("sgd", {}), ("slbfgs", {}),
+    ("lbfgs", {"timed_chunks": 10}), ("lbfgs", {"compute_dtype": "bfloat16"}),
+    ("lbfgs", {"prefix_dtype": "bfloat16"}), ("lbfgs", {"grad_input_dtype": "bfloat16"}),
+    ("lbfgs", {"line_input_dtype": "uint8"}), ("gd", {"fun_input_dtype": "uint8"}),
+    ("lbfgs", {"ls_alpha_init": "warm"}), ("lbfgs", {"line_search": "wolfe"}),
+    ("lbfgs", {"line_search": "armijo_batched"}), ("lbfgs", {"pair_dtype": "float16"}),
+])
+def test_unported_options_raise(solver, kw, tmp_path):
+    _, tl = _both()
+    tl.out_dir = tmp_path
+    with pytest.raises(NotImplementedError):
+        tl.train(solver, UnifiedConfig(max_iters=2, **kw), verbose=False)
+
+
+def test_cpu_style_lbfgs_needs_wolfe(tmp_path):
+    _, tl = _both("cpu")
+    tl.out_dir = tmp_path
+    with pytest.raises(NotImplementedError):
+        tl.train("lbfgs", UnifiedConfig(max_iters=2), verbose=False)
+    assert tl.train("gd", UnifiedConfig(max_iters=2, write_csv=False), verbose=False).csv_path is None
+
+
+@pytest.mark.parametrize("log_interval", [1, 3])
+def test_history_csv_matches_jax_writer(tmp_path, log_interval):
+    """The same History gives the same text from both writers."""
+    rng = np.random.default_rng(3)
+    loss, gnorm = rng.random(7), rng.random(7)
+    tms = np.linspace(0.5, 3.5, 7)
+    write_history_csv(tmp_path / "t.csv", History(loss, gnorm, tms), log_interval)
+    j_write(str(tmp_path / "j.csv"), JHistory(loss, gnorm, tms), log_interval)
+    assert (tmp_path / "t.csv").read_text() == (tmp_path / "j.csv").read_text()
+    back = read_history_csv(tmp_path / "t.csv")
+    np.testing.assert_array_equal(back.loss, loss[::log_interval])
+    write_history_csv(tmp_path / "none.csv", History(loss, gnorm, tms), 0)
+    assert not (tmp_path / "none.csv").exists()
+
+
+@pytest.fixture
+def fashion_root(tmp_path):
+    rng = np.random.default_rng(4)
+    write_idx_u8(tmp_path / "train-labels-idx1-ubyte", rng.integers(0, 10, 96, dtype=np.uint8))
+    write_idx_u8(tmp_path / "t10k-labels-idx1-ubyte", rng.integers(0, 10, 24, dtype=np.uint8))
+    return tmp_path
+
+
+def test_runner_main_deep_on_cpu(fashion_root, capsys):
+    """The cuda-style run list on the deep net at a tiny size: GD, L-BFGS m=10
+    and m=100, and both bf16-ring variants run; SGD is named and skipped."""
+    out = fashion_root / "out"
+    done = run_mnist.main(["--dataset", "fashion", "--deep", "--iters", "4", "--bf16-ring",
+                           "--data-root", str(fashion_root), "--out-dir", str(out),
+                           "--device", "cpu"])
+    names = [cfg.name for _, cfg, _ in done]
+    assert names == ["FASHION_GD", "FASHION_LBFGS_m10", "FASHION_LBFGS_m100",
+                     "FASHION_LBFGS_m10_bf16ring", "FASHION_LBFGS_m100_bf16ring"]
+    assert "FASHION_SGD (SGD, ROADMAP queue 1 item 12)" in capsys.readouterr().out
+    for solver, cfg, rep in done:
+        assert rep.result.n_iters == 4 and bool(torch.isfinite(rep.result.final_loss))
+        assert (out / f"{cfg.name}_history.csv").read_text().startswith(
+            "Iteration,Loss,GradNorm,TimeMs\n")
+        assert rep.result.x.shape == (242762,) and rep.result.x.device.type == "cpu"
+    assert [cfg.pair_dtype for _, cfg, _ in done][-2:] == ["bfloat16", "bfloat16"]
+
+
+def test_runner_filters_and_styles(fashion_root, capsys):
+    base = ["--dataset", "fashion", "--iters", "2", "--data-root", str(fashion_root),
+            "--out-dir", str(fashion_root / "out"), "--device", "cpu", "--train-size", "32"]
+    done = run_mnist.main(base + ["--only", "LBFGS_m10", "--plain-two-loop"])  # a substring
+    assert [(s, c.name, c.two_loop_impl) for s, c, _ in done] == [
+        ("lbfgs", "FASHION_LBFGS_m10", "plain"), ("lbfgs", "FASHION_LBFGS_m100", "plain")]
+    done = run_mnist.main(base + ["--style", "cpu"])
+    assert [c.name for _, c, _ in done] == ["FASHION_Unified_GD"]
+    assert "FASHION_LBFGS (Wolfe L-BFGS, ROADMAP queue 1 item 13)" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        run_mnist.main(base + ["--only", "nothing-matches"])
+    with pytest.raises(SystemExit):  # --data-root is required
+        run_mnist.main(["--dataset", "fashion", "--device", "cpu"])

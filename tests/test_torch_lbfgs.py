@@ -148,7 +148,7 @@ def test_stops_on_tol_and_pads_history():
 @pytest.mark.parametrize("kw", [
     {"line_search": "wolfe"}, {"line_search": "armijo_batched"},
     {"ls_alpha_init": "warm"}, {"curvature_pairs": "hvp"}, {"two_loop_impl": "compact"},
-    {"pair_dtype": "bfloat16"}, {"prefix_dtype": "bfloat16"}, {"prefix_refresh": 16},
+    {"pair_dtype": "float16"}, {"prefix_dtype": "bfloat16"}, {"prefix_refresh": 16},
 ])
 def test_unported_options_raise(kw):
     js, ts, w0, x, y = _problem("shallow")

@@ -12,8 +12,10 @@ import torch
 
 import lbfgs_ffnn_tpu.ops.two_loop
 import lbfgs_ffnn_torch.ops.two_loop
-from lbfgs_ffnn_tpu.ops.pallas_two_loop import two_loop_pallas
-from lbfgs_ffnn_torch.ops.cuda_two_loop import kernel_dispatch, two_loop_cuda
+from lbfgs_ffnn_tpu.ops.pallas_two_loop import pallas_dispatch, two_loop_pallas
+from lbfgs_ffnn_torch.ops.cuda_two_loop import (
+    COOPERATIVE, STREAMING, kernel_dispatch, launch, two_loop_cuda,
+)
 
 # the modules (their packages re-export a function of the same name)
 jtl = sys.modules["lbfgs_ffnn_tpu.ops.two_loop"]
@@ -31,8 +33,8 @@ def make_pairs(n, k, seed=0):
     return pairs
 
 
-def torch_ring(m, n, pairs, dtype=torch.float64, device=None):
-    hist = ttl.empty_history_state(m, n, dtype, device=device)
+def torch_ring(m, n, pairs, dtype=torch.float64, device=None, pair_dtype=None):
+    hist = ttl.empty_history_state(m, n, dtype, pair_dtype, device=device)
     for s, y in pairs:
         s_t = torch.tensor(s, dtype=dtype, device=device)
         y_t = torch.tensor(y, dtype=dtype, device=device)
@@ -41,12 +43,19 @@ def torch_ring(m, n, pairs, dtype=torch.float64, device=None):
     return hist
 
 
-def jax_ring(m, n, pairs, dtype=jnp.float64):
-    hist = jtl.empty_history_state(m, n, dtype)
+def jax_ring(m, n, pairs, dtype=jnp.float64, pair_dtype=None):
+    hist = jtl.empty_history_state(m, n, dtype, pair_dtype=pair_dtype)
     for s, y in pairs:
         s_j, y_j = jnp.asarray(s, dtype=dtype), jnp.asarray(y, dtype=dtype)
         hist = jtl.ring_push(hist, s_j, y_j, 1.0 / jnp.vdot(y_j, s_j), jnp.array(True))
     return hist
+
+
+def bf16_bits(a):
+    """The bit patterns of a bf16 array from either framework."""
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(a).view(np.uint16)
 
 
 def dense_inverse_hessian(S, Y, n):
@@ -152,17 +161,97 @@ def test_ring_reset():
 
 def test_kernel_dispatch_reasons():
     assert kernel_dispatch(102400, 10, torch.float32) == ("cuda-cooperative", "")
-    for args in ((102400, 10, torch.float64), (102400, 10, torch.float32, torch.bfloat16),
-                 (8 * 1024 * 1024, 10, torch.float32), (1024, 0, torch.float32)):
+    for args, why in (((102400, 10, torch.float64), "dtype torch.float64"),
+                      ((102400, 10, torch.float32, torch.float16), "pair dtype torch.float16"),
+                      ((8 * 1024 * 1024, 10, torch.float32), "shared memory"),
+                      ((102404, 10, torch.float32), "multiple of 8"),
+                      ((1024, 0, torch.float32), "m=0")):
         impl, reason = kernel_dispatch(*args)
-        assert impl == "unsupported" and reason
+        assert impl == "unsupported" and why in reason
+
+
+@pytest.mark.parametrize("n_pad,m,pair_dtype,want", [
+    (101888, 10, torch.float32, COOPERATIVE),   # MNIST m=10
+    (101888, 10, torch.bfloat16, COOPERATIVE),
+    (242816, 10, torch.float32, COOPERATIVE),   # deep net m=10
+    (242816, 100, torch.float32, STREAMING),    # deep net m=100
+    (242816, 100, torch.bfloat16, STREAMING),
+    (101888, 100, torch.bfloat16, STREAMING),   # MNIST m=100
+    (1048576, 50, torch.float32, STREAMING),    # scripts/diag_two_loop_large.py, n = 1M
+])
+def test_kernel_dispatch_picks(n_pad, m, pair_dtype, want):
+    """The port's size policy at the shapes its paths give it: bf16 pairs
+    are taken, and the resident kernel only where all m pairs fit."""
+    assert kernel_dispatch(n_pad, m, torch.float32, pair_dtype) == (want, "")
 
 
 def test_cuda_wrapper_on_cpu_is_plain():
-    """A CPU tensor takes the plain version and launches nothing."""
+    """A CPU tensor takes the plain version and launches nothing; launching
+    a kernel on it is an error."""
     n, m = 300, 5
     hist = torch_ring(m, n, make_pairs(n, 3), torch.float32)
     v = torch.tensor(np.random.default_rng(3).normal(size=n), dtype=torch.float32)
-    before = two_loop_cuda.LAUNCHES
+    before = dict(two_loop_cuda.LAUNCHES)
     assert torch.equal(two_loop_cuda(v, hist), ttl.two_loop(v, hist))
     assert two_loop_cuda.LAUNCHES == before
+    with pytest.raises(ValueError):
+        launch(STREAMING, v, hist)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_bf16_ring_pushes_bitwise_equal_to_jax(dtype):
+    """Pushes narrow the padded rows to bf16 the same way in both packages
+    (both round f64 through f32: checked bit for bit here); rho, head and
+    count stay in the solver dtype, rho equal up to the f32 rounding of the
+    dot it comes from. The JAX ring pads to 2048, the port to
+    128: the rows agree on the first n entries and are zero after."""
+    m, n = 4, 1000
+    pairs = make_pairs(n, 6, seed=7)
+    t = torch_ring(m, n, pairs, getattr(torch, dtype), pair_dtype=torch.bfloat16)
+    j = jax_ring(m, n, pairs, getattr(jnp, dtype), pair_dtype=jnp.bfloat16)
+    assert t.S.dtype == torch.bfloat16 and t.S.shape == (m, 1024) and t.rho.dtype == getattr(
+        torch, dtype)
+    for tb, jb in ((t.S, j.S), (t.Y, j.Y)):
+        np.testing.assert_array_equal(bf16_bits(tb)[:, :n], bf16_bits(jb).reshape(m, -1)[:, :n])
+        assert not bf16_bits(tb)[:, n:].any()
+    # rho = 1/(y.s) from the unnarrowed pair; the dots sum in other orders
+    np.testing.assert_allclose(t.rho.numpy(), np.asarray(j.rho), rtol=1e-6)
+    assert (int(t.head), int(t.count)) == (int(j.head), int(j.count))
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 3, 301), (4, 9, 257), (6, 4, 2048)])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_plain_bf16_ring_matches_jax_f64(m, k, n, clamp):
+    """An f64 solve with bf16 pairs: the same stored rows (bitwise, above),
+    upcast before every dot and axpy in both: rtol 1e-12 as in f64."""
+    pairs = make_pairs(n, k, seed=m + k)
+    v = np.random.default_rng(1).normal(size=n)
+    r_t = ttl.two_loop(torch.tensor(v), torch_ring(m, n, pairs, pair_dtype=torch.bfloat16),
+                       clamp_gamma=clamp)
+    r_j = jtl.two_loop(jnp.asarray(v), jax_ring(m, n, pairs, pair_dtype=jnp.bfloat16),
+                       clamp_gamma=clamp)
+    np.testing.assert_allclose(r_t.numpy(), np.asarray(r_j), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,pair", [(400_000, "bfloat16"), (200_000, "float32")])
+def test_plain_matches_pallas_streaming(n, pair):
+    """The plain loop against JAX's streaming kernel (interpret mode) on the
+    same f32 ring of 8 pushes into m=6 (wrapped), at sizes where
+    pallas_dispatch picks "pallas-streaming". Both are f32 evaluations of a
+    recursion whose dots run over 400k elements, so they are held to the f64
+    recursion on the same stored rows: the port's error at most twice the
+    kernel's, and the two within 1e-3 of max|r| of each other (JAX's own
+    loop form and its kernel differ by 1.2e-4 there)."""
+    m = 6
+    pairs = [(s.astype(np.float32), y.astype(np.float32)) for s, y in make_pairs(n, 8, seed=5)]
+    v = np.random.default_rng(6).normal(size=n).astype(np.float32)
+    j = jax_ring(m, n, pairs, jnp.float32, pair_dtype=getattr(jnp, pair))
+    assert pallas_dispatch(jtl.ring_n_pad(j), m, jnp.float32, j.S.dtype) == ("pallas-streaming", "")
+    t = torch_ring(m, n, pairs, torch.float32, pair_dtype=getattr(torch, pair))
+    r_p = np.asarray(two_loop_pallas(jnp.asarray(v), j), dtype=np.float64)
+    r_t = ttl.two_loop(torch.tensor(v), t).double().numpy()
+    t64 = t._replace(S=t.S.double(), Y=t.Y.double(), rho=t.rho.double())
+    r_64 = ttl.two_loop(torch.tensor(v, dtype=torch.float64), t64).numpy()
+    err_t, err_p = np.abs(r_t - r_64).max(), np.abs(r_p - r_64).max()
+    assert err_t <= 2 * err_p
+    assert np.abs(r_t - r_p).max() <= 1e-3 * np.abs(r_p).max()
