@@ -2,12 +2,14 @@
 
 The JAX package stays the reference; this package mirrors its module paths
 and public names and is tested against it on the same inputs. It imports
-torch and numpy only. Ported so far: the MNIST L-BFGS main path and the
-deep-net Fashion-MNIST path (IDX data and both loaders, the MLP objective
-with its carried line prefix, the Armijo line search, the curvature ring
-with f32 or bf16 pairs, the two-loop recursion as plain torch and as two
-hand-written Hopper kernels with their size dispatch, the armijo L-BFGS
-solver, gradient descent, the recorder, the launcher and the MNIST runner).
+torch and numpy only. Ported so far: the MNIST L-BFGS main path, the
+deep-net Fashion-MNIST path and the large-n L-BFGS path (IDX data and both
+loaders, the MLP objective with its carried line prefix, the analytic
+objectives, the Armijo and Wolfe line searches, the curvature ring with f32
+or bf16 pairs, the two-loop recursion as plain torch and as three
+hand-written Hopper kernels with their size dispatch, the L-BFGS solver with
+both searches, gradient descent, the recorder, the launcher, the MNIST
+runner, the harness and the large-n two-loop diagnostic).
 """
 
 from lbfgs_ffnn_torch.types import Problem, SolveResult, make_problem

@@ -1,4 +1,4 @@
-// L-BFGS two-loop recursion r = H v: two persistent cooperative kernels,
+// L-BFGS two-loop recursion r = H v: three persistent cooperative kernels,
 // each templated on the stored pair type (float or __nv_bfloat16); all
 // arithmetic is f32.
 //
@@ -22,6 +22,17 @@
 //     other buffer, so the HBM latency of the next pair hides behind this
 //     stage's dot, grid barrier and axpy. bf16 rows arrive as 8 values per
 //     16-byte copy and are upcast in registers.
+//   * kBlocked replaces _kernel_blocked (K3), which keeps only the working
+//     vector in VMEM and streams the rows through it in chunks, with gamma
+//     precomputed outside the kernel. On Hopper the working vector alone
+//     (4 bytes per element) fits the grid's shared memory up to ~7.4M
+//     elements; what no longer fits at n ~ 2M is q plus K2's two staged
+//     pairs. So each block keeps only its q slice in shared memory, and
+//     every stage's dot and axpy sweeps read the pair's slice straight from
+//     global memory with 16-byte loads (bf16: 8 values, upcast in
+//     registers); nothing is staged. Gamma's s.y and y.y ride in stage 0's
+//     sweep as in the other two, which reads the newest y there once more
+//     (JAX's XLA prelude pays the same extra row).
 //
 // Shared design. One block's shared memory (227 KB) cannot hold the working
 // vector (242,816 floats padded on the deep net, 971 KB), so the vector is
@@ -38,8 +49,11 @@
 //
 // Bound on this card: each call reads 2*count*n_pad*sizeof(pair) bytes of
 // history once, plus v and out: at m = 100 on the deep net (n_pad 242,816)
-// 196.2 MB f32 = 58.6 us, 99.1 MB bf16 = 29.6 us at 3.35 TB/s. The 2*count
-// grid barriers (about 1 us each) are expected to set the pace instead.
+// 196.2 MB f32 = 58.6 us, 99.1 MB bf16 = 29.6 us at 3.35 TB/s. A ring
+// larger than the 50 MB L2 is read twice by any streaming schedule (the
+// forward pass needs every pair again): 117 us there, and at m = 50,
+// n = 2M f32 (800 MB) 482 us against 244 us read once. The 2*count grid
+// barriers (a few us each) are expected to set the pace at small n.
 //
 // The grid is sized so that every block is resident at once (a condition
 // of grid.sync()): occupancy x SMs, capped by the number of 1024-element
@@ -59,7 +73,7 @@ constexpr int kSliceAlign = 8;            // slices hold whole 16-byte chunks of
 constexpr int kMaxM = 1024;               // alphas live in shared memory
 constexpr int kNumPartials = 3;           // values reduced per stage (at most)
 
-enum Kind { kResident = 0, kStreaming = 1 };
+enum Kind { kResident = 0, kStreaming = 1, kBlocked = 2 };
 
 struct Params {
   const float* v;      // (n_pad,)
@@ -208,7 +222,7 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
   const int head = *p.head;
   const int count = min(*p.count, m);  // <= m by the ring's invariant
   float* q = reinterpret_cast<float*>(smem);
-  T* rows = reinterpret_cast<T*>(q + slice);
+  T* rows = reinterpret_cast<T*>(q + slice);  // staged pairs (not kBlocked)
   const T* S = static_cast<const T*>(p.S) + start;
   const T* Y = static_cast<const T*>(p.Y) + start;
 
@@ -216,6 +230,8 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
   // the forward pass from the oldest pair up: stage t uses pair j(t).
   auto pair_of = [&](int t) { return t < count ? t : 2 * count - 1 - t; };
   auto slot = [&](int j) { return ((head - 1 - j) % m + m) % m; };  // j-th newest
+  // Offset of stage t's row in S and Y: rows reach 2 * 50 * 4M * 4 bytes.
+  auto row_off = [&](int t) { return (size_t)slot(pair_of(t)) * p.n_pad; };
   // Shared (s, y) slices of stage t's pair: s at +0, y at +slice.
   auto buf = [&](int t) -> T* {
     const int b = kKind == kResident ? pair_of(t) : (t & 1);
@@ -223,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
   };
   // Copy stage t's pair into its buffer: this thread's chunks, one group.
   auto fetch = [&](int t) {
-    const size_t off = (size_t)slot(pair_of(t)) * p.n_pad;
+    const size_t off = row_off(t);
     T* dst = buf(t);
     for (int c = threadIdx.x; c < nchunk; c += kThreads) {
       cp_async16(dst + c * kN, S + off + c * kN);
@@ -232,10 +248,10 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
     cp_async_commit();
   };
 
-  if (kKind == kResident) {
+  if constexpr (kKind == kResident) {
     for (int t = 0; t < count; ++t) fetch(t);
-  } else if (count > 0) {
-    fetch(0);
+  } else if constexpr (kKind == kStreaming) {
+    if (count > 0) fetch(0);
   }
   for (int c = threadIdx.x; c < nchunk; c += kThreads) {
     float x[kN];
@@ -248,18 +264,20 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
   for (int t = 0; t < 2 * count; ++t) {
     const bool bwd = t < count;
     const int i = slot(pair_of(t));
-    if (kKind == kStreaming) {
+    if constexpr (kKind == kStreaming) {
       if (t + 1 < 2 * count) {
         fetch(t + 1);  // the next pair streams in behind this stage
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
-    } else if (t == 0) {
-      cp_async_wait<0>();
+    } else if constexpr (kKind == kResident) {
+      if (t == 0) cp_async_wait<0>();
     }
-    const T* s_row = buf(t);
-    const T* y_row = s_row + slice;
+    // kBlocked reads this stage's slices from global memory; the others
+    // from their shared buffers.
+    const T* s_row = kKind == kBlocked ? S + row_off(t) : buf(t);
+    const T* y_row = kKind == kBlocked ? Y + row_off(t) : s_row + slice;
     const T* dot_row = bwd ? s_row : y_row;   // backward s.q, forward y.z
     const T* axpy_row = bwd ? y_row : s_row;  // backward y, forward s
 
@@ -337,21 +355,27 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
 
 static int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+template <typename T>
+static const void* kernel_of_type(int kind) {
+  switch (kind) {
+    case kResident: return reinterpret_cast<const void*>(two_loop_kernel<T, kResident>);
+    case kStreaming: return reinterpret_cast<const void*>(two_loop_kernel<T, kStreaming>);
+    case kBlocked: return reinterpret_cast<const void*>(two_loop_kernel<T, kBlocked>);
+    default: return nullptr;
+  }
+}
+
 static const void* kernel_of(int kind, int pair_bytes) {
-  if (pair_bytes == 4)
-    return kind == kResident ? reinterpret_cast<const void*>(two_loop_kernel<float, kResident>)
-                             : reinterpret_cast<const void*>(two_loop_kernel<float, kStreaming>);
-  if (pair_bytes == 2)
-    return kind == kResident
-               ? reinterpret_cast<const void*>(two_loop_kernel<__nv_bfloat16, kResident>)
-               : reinterpret_cast<const void*>(two_loop_kernel<__nv_bfloat16, kStreaming>);
+  if (pair_bytes == 4) return kernel_of_type<float>(kind);
+  if (pair_bytes == 2) return kernel_of_type<__nv_bfloat16>(kind);
   return nullptr;
 }
 
 // Dynamic shared memory per element of a block's slice: q, plus all m
-// pairs (resident) or two pairs (streaming) of (s, y).
+// pairs (resident), two pairs (streaming) or none (blocked) of (s, y).
 static size_t smem_per_element(int kind, int pair_bytes, int m) {
-  return sizeof(float) + (size_t)(kind == kResident ? 2 * m : 4) * pair_bytes;
+  const size_t pairs = kind == kResident ? 2 * (size_t)m : kind == kStreaming ? 4 : 0;
+  return sizeof(float) + pairs * pair_bytes;
 }
 
 // Launch geometry of `kind` for (pair_bytes, n_pad, m) on the current

@@ -28,7 +28,7 @@ from lbfgs_ffnn_torch.launcher import Launcher, TrainReport, UnifiedConfig
 _DEFERRED = {("sgd", "cpu"): "SGD, ROADMAP queue 1 item 12",
              ("sgd", "cuda"): "SGD, ROADMAP queue 1 item 12",
              ("slbfgs", "cpu"): "S-LBFGS, ROADMAP queue 1 item 11",
-             ("lbfgs", "cpu"): "Wolfe L-BFGS, ROADMAP queue 1 item 13"}
+             ("lbfgs", "cpu"): "Wolfe L-BFGS through the Launcher, ROADMAP queue 1 item 10"}
 
 
 def build_parser() -> argparse.ArgumentParser:

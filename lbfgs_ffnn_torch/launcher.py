@@ -18,8 +18,8 @@ eager PyTorch has nothing to compile per solve.
 
 Ported: the ``"gd"`` and ``"lbfgs"`` (Armijo) solvers. Not ported yet, and
 raising ``NotImplementedError`` with their ROADMAP item when asked for:
-``"sgd"``, ``"slbfgs"``, the Wolfe search (so L-BFGS in the ``"cpu"``
-style), ``timed_chunks > 0``, ``compute_dtype``, ``prefix_dtype``, the
+``"sgd"``, ``"slbfgs"``, L-BFGS with the Wolfe search (the ``"cpu"``
+style; the solver has it, the launcher does not pass it through yet), ``timed_chunks > 0``, ``compute_dtype``, ``prefix_dtype``, the
 ``*_input_dtype`` copies and ``ls_alpha_init="warm"``. The config fields
 only those read (batch size, decay, S-LBFGS sizes, ...) return with them.
 """
@@ -221,7 +221,8 @@ class Launcher:
         ls = c.line_search or ("armijo" if self.backend_style == "cuda" else "wolfe")
         if ls != "armijo":
             raise NotImplementedError(
-                f"L-BFGS line_search={ls!r} is not ported yet (Wolfe: ROADMAP queue 1 item 13)")
+                f"L-BFGS line_search={ls!r} is not ported to the Launcher yet (ROADMAP queue 1 "
+                "item 10; lbfgs() itself takes line_search=\"wolfe\")")
         # The reference CUDA backend's trial budget (minimizer_base.cuh).
         return LBFGSOptions(
             max_iters=c.max_iters, tol=c.tolerance,

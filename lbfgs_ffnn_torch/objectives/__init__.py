@@ -1,3 +1,8 @@
+from lbfgs_ffnn_torch.objectives.analytic import (
+    ackley_problem,
+    rastrigin_problem,
+    rosenbrock_problem,
+)
 from lbfgs_ffnn_torch.objectives.mlp import (
     MLPSpec,
     evaluate,
@@ -10,6 +15,9 @@ from lbfgs_ffnn_torch.objectives.mlp import (
 )
 
 __all__ = [
+    "ackley_problem",
+    "rastrigin_problem",
+    "rosenbrock_problem",
     "MLPSpec",
     "evaluate",
     "mlp_apply",

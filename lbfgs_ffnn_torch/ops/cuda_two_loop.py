@@ -1,10 +1,12 @@
 """The two-loop recursion as hand-written Hopper kernels, and their dispatch.
 
 Counterpart of :mod:`lbfgs_ffnn_tpu.ops.pallas_two_loop`: the TPU kernels
-``_kernel_resident`` and ``_kernel`` become the cooperative CUDA kernels
-``cuda-cooperative`` (the history slices resident in shared memory) and
-``cuda-streaming`` (the rows streamed one pair ahead) in ``csrc/two_loop.cu``,
-whose header says how each design maps to the card. :func:`kernel_dispatch`
+``_kernel_resident``, ``_kernel`` and ``_kernel_blocked`` become the
+cooperative CUDA kernels ``cuda-cooperative`` (the history slices resident
+in shared memory), ``cuda-streaming`` (the rows streamed one pair ahead)
+and ``cuda-blocked`` (only q in shared memory, the rows read from global
+memory in every sweep) in ``csrc/two_loop.cu``, whose header says how each
+design maps to the card. :func:`kernel_dispatch`
 is the size policy of ``pallas_dispatch``; :func:`two_loop_cuda` has the
 signature of :func:`lbfgs_ffnn_torch.ops.two_loop.two_loop`. For a CPU
 tensor it calls that plain version; for a CUDA tensor it launches the kernel
@@ -20,25 +22,27 @@ import torch
 from lbfgs_ffnn_torch import _build
 from lbfgs_ffnn_torch.ops.two_loop import RingState, two_loop
 
-COOPERATIVE, STREAMING = "cuda-cooperative", "cuda-streaming"
-_KIND = {COOPERATIVE: 0, STREAMING: 1}  # Kind in the source
+COOPERATIVE, STREAMING, BLOCKED = "cuda-cooperative", "cuda-streaming", "cuda-blocked"
+_KIND = {COOPERATIVE: 0, STREAMING: 1, BLOCKED: 2}  # Kind in the source
 _PAIR_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_M = 1024  # alphas live in shared memory (kMaxM in the source)
 _N_PARTIALS = 3  # kNumPartials in the source
 
 # Shared memory a one-block-per-SM grid can hold on an H100 SXM (132 SMs,
 # 227 KB a block may opt into, less the kernels' 4.2 KB of static arrays,
-# rounded down): both kernels keep every block's slice of the working vector
+# rounded down): every kernel keeps each block's slice of the working vector
 # and of its (s, y) buffers there, so this bounds the rings they take.
 _GRID_SMEM_BYTES = 132 * 220 * 1024
+_STAGED_PAIRS = {COOPERATIVE: None, STREAMING: 2, BLOCKED: 0}  # None: all m
 
 
 def fits(impl: str, n_pad: int, m: int, pair_bytes: int) -> bool:
     """Whether ``impl``'s slices fit the shared memory of a one-block-per-SM
     grid: per element of a block's slice, q in f32 plus all m (s, y) pairs
-    (cooperative) or two (streaming) in the pair type (the source's
-    ``smem_per_element``)."""
-    per_element = 4 + (2 * m if impl == COOPERATIVE else 4) * pair_bytes
+    (cooperative), two (streaming) or none (blocked) in the pair type (the
+    source's ``smem_per_element``)."""
+    pairs = _STAGED_PAIRS[impl]
+    per_element = 4 + 2 * (m if pairs is None else pairs) * pair_bytes
     return n_pad * per_element <= _GRID_SMEM_BYTES
 
 
@@ -49,11 +53,12 @@ def kernel_dispatch(n_pad: int, m: int, dtype, pair_dtype=None) -> tuple[str, st
 
     Returns ``(impl, reason)``: ``("cuda-cooperative", "")`` wherever its
     slices of the whole ring fit shared memory, else ``("cuda-streaming",
-    "")`` where the streaming kernel's fit, else ``("unsupported",
+    "")`` where the streaming kernel's fit, else ``("cuda-blocked", "")``
+    where q alone fits (n_pad up to ~7.4M), else ``("unsupported",
     reason)``; the wrapper then raises with the reason instead of
-    substituting another path. The order is measured: where both kernels
-    take a ring the cooperative one was the faster on an H100 (chip_smoke.py
-    phase "stream", table in PERF.md).
+    substituting another path. The order is measured: where two kernels
+    take a ring, the one listed first was the faster on an H100
+    (chip_smoke.py phase "table", table in PERF.md).
     """
     pd = pair_dtype if pair_dtype is not None else dtype
     if dtype != torch.float32:
@@ -69,10 +74,12 @@ def kernel_dispatch(n_pad: int, m: int, dtype, pair_dtype=None) -> tuple[str, st
         return COOPERATIVE, ""
     if fits(STREAMING, n_pad, m, pb):
         return STREAMING, ""
+    if fits(BLOCKED, n_pad, m, pb):
+        return BLOCKED, ""
     return "unsupported", (
-        f"padded row length {n_pad}: the streaming kernel's slices of q and of two "
-        f"(s, y) pairs need more than the {_GRID_SMEM_BYTES} bytes of shared memory of "
-        "one block per SM (the blocked kernel, K3, is not ported yet)")
+        f"padded row length {n_pad}: even the blocked kernel's slices of q alone need "
+        f"{4 * n_pad} bytes, more than the {_GRID_SMEM_BYTES} bytes of shared memory of "
+        f"one block per SM (n_pad <= {_GRID_SMEM_BYTES // 4})")
 
 
 def _lib() -> ctypes.CDLL:
@@ -131,7 +138,9 @@ def two_loop_cuda(
 
     A CPU ``v`` goes to the plain version. A CUDA ``v`` launches the kernel
     :func:`kernel_dispatch` names for the ring; a ring no kernel takes
-    raises with the dispatch's reason.
+    raises with the dispatch's reason, and does not switch to the plain
+    loop: ``two_loop_impl="plain"`` runs such a ring (what the JAX
+    package's default ``"xla"`` does) when the caller asks for it.
     """
     if v.device.type == "cpu":
         return two_loop(v, hist, clamp_gamma=clamp_gamma,
@@ -140,7 +149,8 @@ def two_loop_cuda(
         raise ValueError(f"two_loop_cuda takes CPU or CUDA tensors, got {v.device}")
     impl, reason = kernel_dispatch(hist.S.shape[1], hist.S.shape[0], v.dtype, hist.S.dtype)
     if impl == "unsupported":
-        raise ValueError(f"two_loop_cuda cannot run this ring: {reason}")
+        raise ValueError(f"two_loop_cuda cannot run this ring: {reason}; "
+                         "LBFGSOptions(two_loop_impl=\"plain\") runs it with the plain loop")
     return launch(impl, v, hist, clamp_gamma=clamp_gamma, gamma_min=gamma_min,
                   gamma_max=gamma_max)
 
@@ -154,8 +164,8 @@ def launch(
     gamma_min: float = 1e-6,
     gamma_max: float = 1e6,
 ) -> torch.Tensor:
-    """Launch kernel ``impl`` (``"cuda-cooperative"`` or
-    ``"cuda-streaming"``) on CUDA tensors, on the current stream, and add
+    """Launch kernel ``impl`` (``"cuda-cooperative"``, ``"cuda-streaming"``
+    or ``"cuda-blocked"``) on CUDA tensors, on the current stream, and add
     one to ``two_loop_cuda.LAUNCHES[impl]``. :func:`two_loop_cuda` calls it
     with the dispatch's choice; the dispatch's own measurement calls it with
     each kernel in turn. Never reads ``head``, ``count`` or ``rho`` back to
@@ -208,4 +218,4 @@ def launch(
     return out[:n]
 
 
-two_loop_cuda.LAUNCHES = {COOPERATIVE: 0, STREAMING: 0}
+two_loop_cuda.LAUNCHES = {COOPERATIVE: 0, STREAMING: 0, BLOCKED: 0}

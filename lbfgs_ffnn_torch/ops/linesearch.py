@@ -1,12 +1,14 @@
-"""Armijo backtracking with safeguarded quadratic interpolation.
+"""Line searches: Wolfe bisection and Armijo backtracking.
 
-Counterpart of :func:`lbfgs_ffnn_tpu.ops.linesearch.armijo_quad_line_search`
-(the reference CUDA backend's policy, src/cuda/lbfgs.cuh:108-147), with the
-same trial sequence. The JAX version is a ``lax.while_loop`` that never
-leaves the device; here the loop runs on the host and exits early on the
+Counterparts of :func:`lbfgs_ffnn_tpu.ops.linesearch.wolfe_line_search`
+(the reference CPU backend's policy, src/minimizer/full_batch_minimizer.hpp:
+126-157) and :func:`~lbfgs_ffnn_tpu.ops.linesearch.armijo_quad_line_search`
+(the reference CUDA backend's policy, src/cuda/lbfgs.cuh:108-147), each with
+the same trial sequence. The JAX versions are ``lax.while_loop``s that never
+leave the device; here each loop runs on the host and exits early on the
 accept test, which costs exactly one host sync per trial. Every other
-quantity (alpha, the interpolation, the accept flag) stays a device tensor.
-Wolfe and the batched Armijo search are not ported yet.
+quantity (alpha, the bracket, the interpolation, the accept flag) stays a
+device tensor. The batched Armijo search is not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +26,76 @@ class LineSearchResult(NamedTuple):
     g_new: torch.Tensor      # grad at x + alpha*p
     n_trials: int = 0        # objective evaluations (= host syncs) performed
     carry: Any = ()          # accept-point carry from ``vag_carry_along``
+
+
+def wolfe_line_search(
+    value_and_grad: Callable[..., tuple[torch.Tensor, torch.Tensor]],
+    x: torch.Tensor,
+    p: torch.Tensor,
+    f0: torch.Tensor,
+    dg0: torch.Tensor,
+    aux: Any = (),
+    *,
+    c1: float = 1e-4,
+    c2: float = 0.9,
+    shrink: float = 0.5,
+    max_iters: int = 50,
+    alpha0: torch.Tensor | float = 1.0,
+    value: Callable[..., torch.Tensor] | None = None,
+    value_along: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    vag_along: Callable[[torch.Tensor], tuple] | None = None,
+) -> LineSearchResult:
+    """Bracketing bisection Wolfe search. Per trial at ``alpha``:
+
+    * Armijo fails (``f > f0 + c1*alpha*dg0``): bracket above,
+      ``alpha = shrink*(lo + alpha)``;
+    * curvature fails (``g.p < c2*dg0``): bracket below; double ``alpha``
+      while unbracketed, else ``alpha = shrink*(alpha + hi)``;
+    * both hold: accept.
+
+    If no trial is accepted within ``max_iters``, returns the last *updated*
+    alpha unevaluated (``evaluated=False``), as the reference does; the
+    caller re-evaluates there.
+
+    Without ``value`` every trial is a fused ``value_and_grad``. With
+    ``value`` (loss-only) each trial computes ``(f, df/dalpha)`` with one
+    forward-mode ``torch.func.jvp`` along ``p`` (through ``value_along``,
+    ``alpha -> f(x + alpha*p)``, when given), and the gradient comes from
+    one ``vag_along`` (else ``value_and_grad``) at the accepted point; the
+    returned ``f_new`` is the accepted trial's value.
+    """
+    fused = value is None
+    a = torch.as_tensor(alpha0, dtype=x.dtype, device=x.device)
+    lo = torch.zeros((), dtype=x.dtype, device=x.device)
+    hi = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
+    ok = torch.zeros((), dtype=torch.bool, device=x.device)
+    f_new, g_new = f0, None
+    n_trials, accepted = 0, False
+    while n_trials < max_iters and not accepted:
+        if fused:
+            f_new, g_new = value_and_grad(x + a * p, aux)
+            dg_new = torch.dot(g_new, p)
+        elif value_along is not None:
+            f_new, dg_new = torch.func.jvp(value_along, (a,), (torch.ones_like(a),))
+        else:
+            f_new, dg_new = torch.func.jvp(lambda u: value(u, aux), (x + a * p,), (p,))
+        armijo_fail = f_new > f0 + c1 * a * dg0
+        curv_fail = dg_new < c2 * dg0
+        ok = ~armijo_fail & ~curv_fail
+        alpha_a = shrink * (lo + a)  # Armijo failure: shrink into [lo, alpha]
+        alpha_c = torch.where(torch.isinf(hi), a * 2.0, shrink * (a + hi))
+        lo, hi, a = (torch.where(ok | armijo_fail, lo, a),
+                     torch.where(ok | ~armijo_fail, hi, a),
+                     torch.where(ok, a, torch.where(armijo_fail, alpha_a, alpha_c)))
+        n_trials += 1
+        accepted = bool(ok)  # the one host sync of a trial
+
+    if not fused and accepted:  # the full gradient at the accepted point only
+        g_new = vag_along(a)[1] if vag_along is not None else value_and_grad(x + a * p, aux)[1]
+    elif g_new is None:  # lean and unaccepted, or no trial at all
+        g_new = torch.zeros_like(x)
+    return LineSearchResult(alpha=a, ok=ok, evaluated=accepted, f_new=f_new,
+                            g_new=g_new, n_trials=n_trials)
 
 
 def armijo_quad_line_search(

@@ -1,10 +1,16 @@
-"""L-BFGS with the reference CUDA backend's line-search policy.
+"""L-BFGS with the reference backends' two line-search policies.
 
-Counterpart of :mod:`lbfgs_ffnn_tpu.solvers.lbfgs`, armijo branch: the
-descent-direction check with steepest-descent fallback and history reset,
-Armijo backtracking with safeguarded quadratic interpolation keeping the
-last trial on failure, history reset on line-search failure, and the
-absolute curvature gate (reference: src/cuda/lbfgs.cuh:90-185).
+Counterpart of :mod:`lbfgs_ffnn_tpu.solvers.lbfgs`, both branches:
+  * ``"wolfe"`` (the default) - the reference CPU solver: Wolfe bisection
+    search, skipped on the first iteration for ``alpha = min(1, 1/||g||)``,
+    re-evaluation at the search's last alpha when it ends unaccepted
+    (reference: src/minimizer/lbfgs.hpp:38-99);
+  * ``"armijo"`` - the reference CUDA solver: the descent-direction check
+    with steepest-descent fallback and history reset, Armijo backtracking
+    with safeguarded quadratic interpolation keeping the last trial on
+    failure, history reset on line-search failure
+    (reference: src/cuda/lbfgs.cuh:90-185);
+and the absolute or relative curvature gate in both.
 
 The JAX solve is one ``lax.while_loop``; this one is a host loop with two
 kinds of host sync and no others: the line search's accept test, once per
@@ -19,11 +25,10 @@ and half the two-loop's history traffic); rho = 1/(y.s) comes from the
 solver-dtype pair before the push narrows it, and the recursion runs in the
 solver dtype.
 
-Not ported yet (each raises ``NotImplementedError``): the Wolfe and batched
-Armijo searches, ``ls_alpha_init="warm"``, HVP curvature pairs, the compact
-and sharded two-loops, pair dtypes other than bfloat16, ``prefix_dtype``
-with ``prefix_refresh``, ``mesh``. ``lbfgs_chunked`` is not ported yet
-either.
+Not ported yet (each raises ``NotImplementedError``): the batched Armijo
+search, ``ls_alpha_init="warm"``, HVP curvature pairs, the compact and
+sharded two-loops, pair dtypes other than bfloat16, ``prefix_dtype`` with
+``prefix_refresh``, ``mesh``. ``lbfgs_chunked`` is not ported yet either.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from typing import Any, NamedTuple
 import torch
 
 from lbfgs_ffnn_torch.ops.cuda_two_loop import two_loop_cuda
-from lbfgs_ffnn_torch.ops.linesearch import armijo_quad_line_search
+from lbfgs_ffnn_torch.ops.linesearch import armijo_quad_line_search, wolfe_line_search
 from lbfgs_ffnn_torch.ops.two_loop import (
     RingState, empty_history_state, ring_push, ring_reset, two_loop,
 )
@@ -53,6 +58,7 @@ class LBFGSOptions(NamedTuple):
     line_search: str = "wolfe"
     ls_max_iters: int = 50
     c1: float = 1e-4
+    c2: float = 0.9
     ls_shrink: float = 0.5
     curvature_eps: float = 1e-10
     curvature_rel_eps: float = 0.0
@@ -68,7 +74,7 @@ class LBFGSOptions(NamedTuple):
 
 def _check_options(opts: LBFGSOptions) -> None:
     choices = {
-        "line_search": (opts.line_search, ("armijo",), ("wolfe", "armijo_batched")),
+        "line_search": (opts.line_search, ("wolfe", "armijo"), ("armijo_batched",)),
         "curvature_pairs": (opts.curvature_pairs, ("grad_diff",), ("hvp",)),
         "ls_alpha_init": (opts.ls_alpha_init, ("fixed",), ("warm",)),
         "two_loop_impl": (opts.two_loop_impl, ("plain", "cuda"), ("xla", "pallas", "compact")),
@@ -105,14 +111,33 @@ class _State(NamedTuple):
     syncs: int = 0  # host syncs of the line searches
 
 
-def _lean(opts: LBFGSOptions) -> bool:
-    """Loss-only trials plus one value-and-gradient at the chosen point:
-    on for armijo unless ``ls_value_only=False`` asks for fused trials."""
-    return opts.ls_value_only is not False
+class _Step(NamedTuple):
+    """What a line-search branch hands the shared update."""
+
+    p: torch.Tensor       # the direction searched (after any fallback)
+    hist: RingState       # the ring after any reset
+    B: Any                # the prefix's directional increment, or None
+    alpha: torch.Tensor
+    f_new: torch.Tensor
+    g_new: torch.Tensor
+    nf_add: int
+    ng_add: int
+    trials: int           # line-search trials, one host sync each
+    carry: Any = ()       # armijo's accept-point prefix
+
+
+def _lean(problem: Problem, opts: LBFGSOptions) -> bool:
+    """Loss-only trials (Wolfe: loss and slope by one jvp) plus one
+    value-and-gradient at the chosen point: ``ls_value_only`` when set,
+    else on for armijo and wherever the problem has a line restriction."""
+    if opts.ls_value_only is not None:
+        return opts.ls_value_only
+    return (opts.line_search == "armijo" or problem.line_fun is not None
+            or problem.line_prefix is not None)
 
 
 def _use_prefix(problem: Problem, opts: LBFGSOptions) -> bool:
-    return problem.line_prefix is not None and _lean(opts)
+    return problem.line_prefix is not None and _lean(problem, opts)
 
 
 def _init_state(problem: Problem, opts: LBFGSOptions, x0, aux) -> _State:
@@ -135,11 +160,12 @@ def _not_done(s: _State, opts: LBFGSOptions) -> bool:
 def _make_body(problem: Problem, opts: LBFGSOptions):
     _check_options(opts)
     two_loop_fn = two_loop_cuda if opts.two_loop_impl == "cuda" else two_loop
-    lean = _lean(opts)
+    lean = _lean(problem, opts)
     use_prefix = _use_prefix(problem, opts)
-    # The accept evaluation already computes the post-step prefix (the
-    # MLP's z1 = A + alpha*B); carrying it replaces the prefix axpy.
-    carry_mode = (use_prefix and opts.prefix_vag
+    # The armijo accept evaluation already computes the post-step prefix
+    # (the MLP's z1 = A + alpha*B); carrying it replaces the prefix axpy.
+    # Wolfe keeps the axpy.
+    carry_mode = (use_prefix and opts.prefix_vag and opts.line_search == "armijo"
                   and problem.line_prefix.vag_restrict_carry is not None)
 
     def make_va(s: _State, p, aux):
@@ -156,8 +182,7 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
             return None, problem.line_fun(s.x, p, aux), None, None
         return None, None, None, None
 
-    def body(s: _State, aux) -> _State:
-        p = -two_loop_fn(s.g, s.hist)
+    def armijo(s: _State, p, aux):
         dg0 = torch.dot(s.g, p)
         # Steepest-descent fallback + history reset on a non-descent p
         # (reference: src/cuda/lbfgs.cuh:97-104), decided on the device.
@@ -178,13 +203,46 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
             vag_along=vag if lean else None,
             vag_carry_along=vagc if lean else None,
         )
-        alpha, f_new, g_new = ls.alpha, ls.f_new, ls.g_new
         # History reset on line-search failure (cuda/lbfgs.cuh:147).
         hist = ring_reset(hist, ~ls.ok)
         if lean:  # value-only trials + one value-and-gradient
             nf_add, ng_add = ls.n_trials + 1, 1
         else:     # each trial is a fused value-and-gradient
             nf_add, ng_add = ls.n_trials, ls.n_trials
+        return _Step(p, hist, B, ls.alpha, ls.f_new, ls.g_new, nf_add, ng_add, ls.n_trials,
+                     ls.carry)
+
+    def wolfe(s: _State, p, aux):
+        B, va, vag, _ = make_va(s, p, aux)
+        if s.k == 0:
+            # First-iteration heuristic step, no search
+            # (reference: src/minimizer/lbfgs.hpp:61-65).
+            alpha = torch.minimum(torch.ones_like(s.gnorm), 1.0 / s.gnorm)
+            f_new, g_new = problem.value_and_grad(s.x + alpha * p, aux)
+            return _Step(p, s.hist, B, alpha, f_new, g_new, 1, 1, 0)
+        ls = wolfe_line_search(
+            problem.value_and_grad, s.x, p, s.f, torch.dot(s.g, p), aux,
+            c1=opts.c1, c2=opts.c2, shrink=opts.ls_shrink, max_iters=opts.ls_max_iters,
+            alpha0=1.0,
+            value=problem.fun if lean else None,
+            value_along=va if lean else None,
+            vag_along=vag if lean else None,
+        )
+        f_new, g_new = ls.f_new, ls.g_new
+        if not ls.evaluated:  # re-evaluate at the search's last alpha
+            f_new, g_new = problem.value_and_grad(s.x + ls.alpha * p, aux)
+        if lean:  # jvp trials + one value-and-gradient (accepted or re-evaluated)
+            nf_add, ng_add = ls.n_trials + 1, 1
+        else:
+            one_more = 0 if ls.evaluated else 1
+            nf_add, ng_add = ls.n_trials + one_more, ls.n_trials + one_more
+        return _Step(p, s.hist, B, ls.alpha, f_new, g_new, nf_add, ng_add, ls.n_trials)
+
+    search = armijo if opts.line_search == "armijo" else wolfe
+
+    def body(s: _State, aux) -> _State:
+        p = -two_loop_fn(s.g, s.hist)
+        p, hist, B, alpha, f_new, g_new, nf_add, ng_add, trials, carry = search(s, p, aux)
 
         x_new = s.x + alpha * p
         step = alpha * p
@@ -202,7 +260,7 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
         gnorm_new = torch.linalg.norm(g_new)
         loss_h, gnorm_h = record(s.loss_h, s.gnorm_h, s.k, f_new, gnorm_new)
         if carry_mode:
-            prefix_new = ls.carry
+            prefix_new = carry
         elif use_prefix:  # the prefix is linear in w: P += alpha * B
             prefix_new = s.prefix + alpha * B
         else:
@@ -210,7 +268,7 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
         return _State(
             k=s.k + 1, x=x_new, f=f_new, g=g_new, gnorm=gnorm_new, hist=hist,
             loss_h=loss_h, gnorm_h=gnorm_h, nf=s.nf + nf_add, ng=s.ng + ng_add,
-            prefix=prefix_new, syncs=s.syncs + ls.n_trials,
+            prefix=prefix_new, syncs=s.syncs + trials,
         )
 
     return body

@@ -6,8 +6,10 @@ default gradient comes from ``torch.func.grad_and_value`` where the JAX
 package uses ``jax.value_and_grad``. ``aux`` is a tuple of extra operands
 (e.g. the training set ``(x, y)``).
 
-Ported so far: what the MNIST L-BFGS path uses. ``BatchProblem``, the dense
-``hess`` and ``Problem.hvp`` are not ported yet.
+Ported so far: what the L-BFGS paths use, and ``Problem.hess`` in JAX's
+field order (the analytic objectives supply their dense Hessians).
+``BatchProblem``, ``Problem.hvp`` and the default autodiff dense Hessian are
+not ported yet: without a ``hess`` argument ``Problem.hess`` is None.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ class LinePrefix(NamedTuple):
 class Problem(NamedTuple):
     """A smooth unconstrained objective for full-batch solvers.
 
-    All callables take ``(w, aux)``; ``line_fun(w, p, aux)`` returns
+    All callables take ``(w, aux)``; ``hess(w, aux)`` is the dense Hessian
+    when the objective supplies one; ``line_fun(w, p, aux)`` returns
     ``alpha -> fun(w + alpha*p, aux)`` computed with structure, and
     ``line_prefix`` is its carried form. ``prepare(aux) -> aux`` runs once
     per solve (identity when None).
@@ -50,6 +53,7 @@ class Problem(NamedTuple):
     fun: Callable[..., torch.Tensor]
     grad: Callable[..., torch.Tensor]
     value_and_grad: Callable[..., tuple[torch.Tensor, torch.Tensor]]
+    hess: Optional[Callable[..., torch.Tensor]] = None
     line_fun: Optional[Callable[..., Callable[[torch.Tensor], torch.Tensor]]] = None
     line_prefix: Optional[LinePrefix] = None
     prepare: Optional[Callable[[Any], Any]] = None
@@ -88,12 +92,15 @@ def prepared_aux(problem: Problem, aux: Any) -> Any:
 def make_problem(
     fun: Callable[..., torch.Tensor],
     grad: Optional[Callable[..., torch.Tensor]] = None,
+    hess: Optional[Callable[..., torch.Tensor]] = None,
     line_fun: Optional[Callable[..., Callable]] = None,
     line_prefix: Optional[LinePrefix] = None,
     prepare: Optional[Callable[[Any], Any]] = None,
 ) -> Problem:
-    """Build a :class:`Problem` from a scalar objective ``fun(w, aux)``; the
-    gradient defaults to ``torch.func`` autodiff."""
+    """Build a :class:`Problem` from a scalar objective ``fun(w, aux)``, with
+    the parameters in the JAX package's order. Analytic ``grad``/``hess``
+    may be supplied; the gradient defaults to ``torch.func`` autodiff and
+    ``hess`` stays None when not given."""
     if grad is None:
         grad = torch.func.grad(fun)
         _grad_and_value = torch.func.grad_and_value(fun)
@@ -109,5 +116,5 @@ def make_problem(
         # The per-call restriction is derivable from the carried protocol.
         def line_fun(w, p, aux, _lp=line_prefix):
             return _lp.restrict(_lp.init(w, aux), _lp.direction(p, aux), w, p, aux)
-    return Problem(fun=fun, grad=grad, value_and_grad=value_and_grad,
+    return Problem(fun=fun, grad=grad, value_and_grad=value_and_grad, hess=hess,
                    line_fun=line_fun, line_prefix=line_prefix, prepare=prepare)

@@ -1,4 +1,5 @@
-"""The Hopper two-loop kernels against their plain torch version on the card.
+"""The Hopper two-loop kernels (K1, K2, K3) against their plain torch version
+on the card.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from lbfgs_ffnn_torch.ops.cuda_two_loop import (
-    COOPERATIVE, STREAMING, kernel_dispatch, launch, two_loop_cuda,
+    BLOCKED, COOPERATIVE, STREAMING, kernel_dispatch, launch, two_loop_cuda,
 )
 from lbfgs_ffnn_torch.ops.two_loop import empty_history_state, ring_push, two_loop
 
@@ -33,6 +34,17 @@ def _ring(m, n, k, dev, pair_dtype=torch.float32, seed=0):
         s = rng.normal(size=n)
         y = torch.tensor(rng.normal(size=n) + 0.5 * s, dtype=torch.float32, device=dev)
         s = torch.tensor(s, dtype=torch.float32, device=dev)
+        hist = ring_push(hist, s, y, 1.0 / torch.dot(y, s), torch.dot(y, s) > 1e-3)
+    return hist
+
+
+def _ring_on_card(m, n, k, dev, pair_dtype=torch.float32, seed=0):
+    """As _ring, with the pairs drawn on the card (n in the millions)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hist = empty_history_state(m, n, torch.float32, pair_dtype, device=dev)
+    for _ in range(k):
+        s = torch.randn(n, generator=gen, device=dev)
+        y = torch.randn(n, generator=gen, device=dev) + 0.5 * s
         hist = ring_push(hist, s, y, 1.0 / torch.dot(y, s), torch.dot(y, s) > 1e-3)
     return hist
 
@@ -69,11 +81,30 @@ def test_kernel_matches_plain_on_card(cuda, m, k, n, clamp, pair_dtype):
 
 @pytest.mark.cuda
 @PAIR_DTYPES
-@pytest.mark.parametrize("impl", [COOPERATIVE, STREAMING])
+@pytest.mark.parametrize("impl", [COOPERATIVE, STREAMING, BLOCKED])
 @pytest.mark.parametrize("k", [0, 3, 13])
 def test_each_kernel_on_a_ring_both_take(cuda, impl, k, pair_dtype):
-    """Both kernels forced onto the MNIST m=10 ring, which either takes."""
+    """Each kernel forced onto the MNIST m=10 ring, which all three take."""
     _check_against_plain(_ring(10, 101770, k, cuda, pair_dtype), 101770, False, cuda, impl)
+
+
+@pytest.mark.cuda
+@PAIR_DTYPES
+@pytest.mark.parametrize("n", [257, 3000, 101770])
+@pytest.mark.parametrize("m,k,clamp", [(5, 0, False), (5, 3, True), (4, 9, False)])
+def test_blocked_kernel_forced(cuda, n, m, k, clamp, pair_dtype):
+    """The blocked kernel (K3) forced onto small rings: ragged last slices
+    and grids of fewer blocks than SMs, empty, partial and wrapped rings."""
+    _check_against_plain(_ring(m, n, k, cuda, pair_dtype), n, clamp, cuda, BLOCKED)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,clamp", [(20, False), (53, True)])
+def test_blocked_kernel_dispatched_at_two_million(cuda, k, clamp):
+    """The large-n path's ring: m=50, n=2,000,000, f32 pairs go to K3."""
+    n = 2_000_000
+    assert kernel_dispatch(n, 50, torch.float32)[0] == BLOCKED
+    _check_against_plain(_ring_on_card(50, n, k, cuda), n, clamp, cuda)
 
 
 @pytest.mark.cuda
@@ -89,6 +120,8 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # a pair type no kernel takes
         two_loop_cuda(v, _ring(5, 300, 2, cuda, torch.float16))
     with pytest.raises(ValueError):
-        launch("cuda-blocked", v, hist)
+        launch("cuda-nonesuch", v, hist)
     with pytest.raises(RuntimeError):  # the resident slices of m=100 do not fit
         launch(COOPERATIVE, torch.ones(242762, device=cuda), _ring(100, 242762, 1, cuda))
+    with pytest.raises(ValueError, match="blocked kernel"):  # above K3's capacity
+        two_loop_cuda(torch.ones(7_434_248, device=cuda), _ring_on_card(1, 7_434_248, 0, cuda))

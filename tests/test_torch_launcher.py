@@ -173,7 +173,8 @@ def test_runner_filters_and_styles(fashion_root, capsys):
         ("lbfgs", "FASHION_LBFGS_m10", "plain"), ("lbfgs", "FASHION_LBFGS_m100", "plain")]
     done = run_mnist.main(base + ["--style", "cpu"])
     assert [c.name for _, c, _ in done] == ["FASHION_Unified_GD"]
-    assert "FASHION_LBFGS (Wolfe L-BFGS, ROADMAP queue 1 item 13)" in capsys.readouterr().out
+    assert ("FASHION_LBFGS (Wolfe L-BFGS through the Launcher, ROADMAP queue 1 item 10)"
+            in capsys.readouterr().out)
     with pytest.raises(SystemExit):
         run_mnist.main(base + ["--only", "nothing-matches"])
     with pytest.raises(SystemExit):  # --data-root is required

@@ -120,12 +120,30 @@ def test_cuda_impl_on_cpu_equals_plain():
     assert torch.equal(a.x, b.x) and a.n_fevals == b.n_fevals
 
 
-@pytest.mark.parametrize("name", ["c2", "ls_spec_k", "ls_alpha_growth"])
+@pytest.mark.parametrize("name", ["ls_spec_k", "ls_alpha_growth"])
 def test_options_of_unported_branches_are_refused(name):
-    """Options read only by Wolfe, the batched search and warm alpha do not
-    exist here, so setting one fails instead of doing nothing."""
+    """Options read only by the batched search and warm alpha do not exist
+    here, so setting one fails instead of doing nothing."""
     with pytest.raises(TypeError):
         LBFGSOptions(**{name: 1.0})
+
+
+def test_c2_is_honoured():
+    """Wolfe's curvature constant: 0.9 by default, as JAX; c2 = 0.1 asks
+    for longer steps, and the port follows JAX's trajectory with either."""
+    from lbfgs_ffnn_tpu.objectives import analytic as ja
+    from lbfgs_ffnn_torch.objectives import analytic as ta
+
+    assert LBFGSOptions().c2 == JOptions().c2 == 0.9
+    runs = {}
+    for c2 in (0.9, 0.1):
+        kw = dict(max_iters=15, tol=1e-12, m=5, line_search="wolfe", c2=c2)
+        rj = j_lbfgs(ja.rosenbrock_problem(), ja.rosenbrock_start(6), opts=JOptions(**kw))
+        rt = lbfgs(ta.rosenbrock_problem(), ta.rosenbrock_start(6), opts=LBFGSOptions(**kw))
+        _assert_same_trajectory(rt, rj)
+        runs[c2] = rt
+    assert runs[0.1].n_fevals > runs[0.9].n_fevals
+    assert not torch.equal(runs[0.1].loss_history, runs[0.9].loss_history)
 
 
 def test_stops_on_tol_and_pads_history():
@@ -146,7 +164,7 @@ def test_stops_on_tol_and_pads_history():
 
 
 @pytest.mark.parametrize("kw", [
-    {"line_search": "wolfe"}, {"line_search": "armijo_batched"},
+    {"line_search": "wolfe", "ls_alpha_init": "warm"}, {"line_search": "armijo_batched"},
     {"ls_alpha_init": "warm"}, {"curvature_pairs": "hvp"}, {"two_loop_impl": "compact"},
     {"pair_dtype": "float16"}, {"prefix_dtype": "bfloat16"}, {"prefix_refresh": 16},
 ])
@@ -163,3 +181,28 @@ def test_mesh_not_ported():
     with pytest.raises(NotImplementedError):
         lbfgs(tmlp.mlp_problem(ts), torch.tensor(w0), aux=(torch.tensor(x), torch.tensor(y)),
               opts=LBFGSOptions(line_search="armijo"), mesh=object())
+
+
+@pytest.mark.parametrize("line_search", ["armijo", "wolfe"])
+def test_large_rosenbrock_matches_jax_blocked_kernel(line_search):
+    """The large-n slice at a CPU size: f32 L-BFGS (m=3, 6 iterations) on
+    the extended Rosenbrock at n = 600,000, where JAX's two_loop_impl=
+    "pallas" dispatches its rows-blocked kernel (K3, interpret mode) and the
+    port runs its plain two-loop on CPU tensors. Counters are equal; the
+    losses are f32 sums of 600k terms taken in other orders in the two
+    packages and agree to rtol 1e-2 (measured: 4.7e-3)."""
+    from lbfgs_ffnn_tpu.objectives import analytic as ja
+    from lbfgs_ffnn_tpu.ops.pallas_two_loop import pallas_dispatch
+    from lbfgs_ffnn_torch.objectives import analytic as ta
+
+    n = 600_000
+    assert pallas_dispatch(-(-n // 1024) * 1024, 3, jnp.float32)[0] == "pallas-blocked"
+    kw = dict(max_iters=6, tol=1e-12, m=3, line_search=line_search)
+    rj = j_lbfgs(ja.rosenbrock_problem(), ja.rosenbrock_start(n, jnp.float32),
+                 opts=JOptions(two_loop_impl="pallas", **kw))
+    rt = lbfgs(ta.rosenbrock_problem(), ta.rosenbrock_start(n, torch.float32),
+               opts=LBFGSOptions(**kw))
+    assert rt.n_iters == int(rj.n_iters) == 6
+    assert rt.n_fevals == int(rj.n_fevals) and rt.n_gevals == int(rj.n_gevals)
+    np.testing.assert_allclose(rt.loss_history.numpy(), np.asarray(rj.loss_history), rtol=1e-2)
+    assert rt.loss_history[-1] < rt.loss_history[0] / 100

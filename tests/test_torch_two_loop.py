@@ -1,6 +1,7 @@
 """The port's curvature ring and two-loop recursion: ring mechanics, the plain
-torch recursion against the JAX loop form (f64) and the Pallas kernel
-(f32, interpret mode) and a dense inverse-Hessian oracle. The Hopper
+torch recursion against the JAX loop form (f64) and the Pallas kernels
+(f32, interpret mode: the streaming and the rows-blocked one) and a dense
+inverse-Hessian oracle; the Hopper dispatch's picks and reasons. The Hopper
 kernel's own test, which needs the card, is tests/test_torch_cuda.py."""
 
 import sys
@@ -12,9 +13,11 @@ import torch
 
 import lbfgs_ffnn_tpu.ops.two_loop
 import lbfgs_ffnn_torch.ops.two_loop
-from lbfgs_ffnn_tpu.ops.pallas_two_loop import pallas_dispatch, two_loop_pallas
+from lbfgs_ffnn_tpu.ops.pallas_two_loop import (
+    _two_loop_pallas_blocked, pallas_dispatch, two_loop_pallas,
+)
 from lbfgs_ffnn_torch.ops.cuda_two_loop import (
-    COOPERATIVE, STREAMING, kernel_dispatch, launch, two_loop_cuda,
+    BLOCKED, COOPERATIVE, STREAMING, kernel_dispatch, launch, two_loop_cuda,
 )
 
 # the modules (their packages re-export a function of the same name)
@@ -164,6 +167,8 @@ def test_kernel_dispatch_reasons():
     for args, why in (((102400, 10, torch.float64), "dtype torch.float64"),
                       ((102400, 10, torch.float32, torch.float16), "pair dtype torch.float16"),
                       ((8 * 1024 * 1024, 10, torch.float32), "shared memory"),
+                      ((7_434_248, 50, torch.float32), "blocked kernel"),
+                      ((7_434_248, 50, torch.float32, torch.bfloat16), "n_pad <= 7434240"),
                       ((102404, 10, torch.float32), "multiple of 8"),
                       ((1024, 0, torch.float32), "m=0")):
         impl, reason = kernel_dispatch(*args)
@@ -178,10 +183,16 @@ def test_kernel_dispatch_reasons():
     (242816, 100, torch.bfloat16, STREAMING),
     (101888, 100, torch.bfloat16, STREAMING),   # MNIST m=100
     (1048576, 50, torch.float32, STREAMING),    # scripts/diag_two_loop_large.py, n = 1M
+    (2_000_000, 50, torch.float32, BLOCKED),    # the large Rosenbrock path
+    (2_000_000, 50, torch.bfloat16, STREAMING),  # K2's slices of q + 2 bf16 pairs still fit
+    (4_000_000, 50, torch.float32, BLOCKED),    # scripts/diag_two_loop_large.py, n = 4M
+    (4_000_000, 50, torch.bfloat16, BLOCKED),
+    (7_434_240, 50, torch.float32, BLOCKED),    # K3's capacity: q alone fills the grid
 ])
 def test_kernel_dispatch_picks(n_pad, m, pair_dtype, want):
     """The port's size policy at the shapes its paths give it: bf16 pairs
-    are taken, and the resident kernel only where all m pairs fit."""
+    are taken, the resident kernel only where all m pairs fit, the blocked
+    one where not even two staged pairs fit beside q."""
     assert kernel_dispatch(n_pad, m, torch.float32, pair_dtype) == (want, "")
 
 
@@ -255,3 +266,45 @@ def test_plain_matches_pallas_streaming(n, pair):
     err_t, err_p = np.abs(r_t - r_64).max(), np.abs(r_p - r_64).max()
     assert err_t <= 2 * err_p
     assert np.abs(r_t - r_p).max() <= 1e-3 * np.abs(r_p).max()
+
+
+def _blocked_reference(hist_j, v, n, blk, clamp):
+    rows = hist_j.S.shape[1]
+    v2 = jnp.zeros((rows * 128,), jnp.float32).at[:n].set(jnp.asarray(v)).reshape(rows, 128)
+    out = _two_loop_pallas_blocked(v2, hist_j.S, hist_j.Y, hist_j.rho, hist_j.head,
+                                   hist_j.count, clamp, 1e-6, 1e6, True, blk)
+    return np.asarray(out[:n])
+
+
+@pytest.mark.parametrize("m,k,n,blk", [
+    (5, 0, 3000, 8),    # empty history
+    (5, 3, 3000, 8),    # partial fill, even chunks
+    (4, 9, 3000, 8),    # wrapped ring
+    (5, 4, 3000, 10),   # ragged tail chunk (rows=24, cblk=10, tail=4)
+])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_plain_matches_pallas_blocked(m, k, n, blk, clamp):
+    """The plain loop against JAX's rows-blocked kernel (K3) in interpret
+    mode, at the shapes and tolerance of tests/test_pallas_two_loop.py
+    (3e-5: both f32, reduced in other orders; K3 takes gamma from an XLA
+    prelude, the plain loop from its own dots)."""
+    pairs = [(s.astype(np.float32), y.astype(np.float32))
+             for s, y in make_pairs(n, k, seed=m + k)]
+    v = np.random.default_rng(1).normal(size=n).astype(np.float32)
+    r_p = _blocked_reference(jax_ring(m, n, pairs, jnp.float32), v, n, blk, clamp)
+    r_t = ttl.two_loop(torch.tensor(v), torch_ring(m, n, pairs, torch.float32), clamp_gamma=clamp)
+    np.testing.assert_allclose(r_t.numpy(), r_p, rtol=3e-5, atol=3e-5)
+
+
+def test_plain_bf16_ring_matches_pallas_blocked():
+    """The bf16 ring through JAX's blocked kernel (chunk 10, rounded to 16
+    rows) against the plain loop on the same bf16 rows: 5e-5, as
+    tests/test_pallas_two_loop.py holds the kernel to the XLA loop."""
+    m, n, k = 4, 5000, 6
+    pairs = [(s.astype(np.float32), y.astype(np.float32)) for s, y in make_pairs(n, k, seed=21)]
+    v = np.random.default_rng(22).normal(size=n).astype(np.float32)
+    r_p = _blocked_reference(jax_ring(m, n, pairs, jnp.float32, pair_dtype=jnp.bfloat16), v, n,
+                             10, False)
+    t = torch_ring(m, n, pairs, torch.float32, pair_dtype=torch.bfloat16)
+    np.testing.assert_allclose(ttl.two_loop(torch.tensor(v), t).numpy(), r_p, rtol=5e-5,
+                               atol=5e-5)
