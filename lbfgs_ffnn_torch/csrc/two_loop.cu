@@ -1,6 +1,7 @@
 // L-BFGS two-loop recursion r = H v: three persistent cooperative kernels,
 // each templated on the stored pair type (float or __nv_bfloat16); all
-// arithmetic is f32.
+// arithmetic is f32. K1 and K3 are two_loop_kernel<T, kKind>; K2 is
+// two_loop_grouped_kernel<T, K>, K pairs per grid reduction.
 //
 //   backward, newest -> oldest:  a_i = rho_i s_i.q ;  q -= a_i y_i
 //   gamma = s.y / y.y of the newest pair (1 if count == 0 or y.y <= 0;
@@ -15,13 +16,30 @@
 //     shared memory with cp.async at the start, then runs the 2*count stages
 //     from shared memory. It takes rings whose slices fit: about 29 MB of
 //     q + S + Y over a one-block-per-SM grid of an H100.
-//   * kStreaming replaces _kernel (K2), which keeps q on-chip and streams the
-//     (s_i, y_i) rows from HBM, double-buffered one pair ahead. Here every
-//     block keeps two (s, y) slice buffers in shared memory; at the start of
-//     stage t it issues the cp.async copies of stage t+1's pair into the
-//     other buffer, so the HBM latency of the next pair hides behind this
-//     stage's dot, grid barrier and axpy. bf16 rows arrive as 8 values per
-//     16-byte copy and are upcast in registers.
+//   * kStreaming (two_loop_grouped_kernel) replaces
+//     pallas_two_loop.py::_kernel (K2), which keeps q on-chip and streams the
+//     (s_i, y_i) rows from HBM one pair ahead, one sequential stage per
+//     pair. On one TPU core a stage is cheap; across 132 SMs every stage
+//     needs a grid-wide reduction (block reduction, grid.sync(), a read of
+//     every block's partial, a second block reduction, a broadcast), ~3 us
+//     against the 0.6 us its bytes take at the deep m=100 ring. So here the
+//     grid reduction, not HBM, bounds the kernel, and one reduction serves
+//     a group of K consecutive pairs: within a group every coefficient
+//     follows from dots against the vector at the group's start and the
+//     group's cross dots (two_loop_grouped in ops/two_loop.py has the
+//     algebra),
+//       backward  a_j = rho_j (s_j.q0 - sum_{l<j} a_l s_j.y_l),
+//       forward   b_j = rho_j (y_j.z0 + sum_{l<j} (a_l - b_l) y_j.s_l),
+//     K + K(K-1)/2 values per reduction. Every block keeps two group
+//     buffers of K (s, y) slice pairs in shared memory; one sweep applies
+//     group g's update and accumulates group g+1's dots against the updated
+//     chunk; then the cp.async copies of group g+2 go into the buffer g
+//     freed and land behind g+1's grid reduction. That reduction
+//     (grid_sum_wide) takes all of a group's values at once, and does not
+//     pay an L2 round trip per value as grid_sum does. Thread 0 of every
+//     block solves a group's K-term triangular recursion in one fixed
+//     order, so all blocks get bitwise-equal coefficients. bf16 rows arrive
+//     as 8 values per 16-byte copy and are upcast in registers.
 //   * kBlocked replaces _kernel_blocked (K3), which keeps only the working
 //     vector in VMEM and streams the rows through it in chunks, with gamma
 //     precomputed outside the kernel. On Hopper the working vector alone
@@ -38,22 +56,24 @@
 // vector (242,816 floats padded on the deep net, 971 KB), so the vector is
 // split: each block owns one contiguous slice of q (later z) in shared
 // memory for the whole call, and the 2*count sequential stages run inside
-// one launch. A stage is: partial dot over the block's slice -> block
-// reduction -> partials[block] -> grid.sync() -> every block sums all
-// partials in the same fixed order (so every block, and every run, gets the
-// bitwise same scalar; no atomics) -> local axpy on the slice. The newest
-// pair's s.y and y.y ride along in the first stage. Each thread copies,
-// reads and writes only its own 16-byte chunks of every shared buffer, so
-// the buffers need no block barrier: a thread's cp.async wait covers all it
-// reads.
+// one launch. A stage (in K2 a group of stages) is: partial dots over the
+// block's slice -> block reduction -> partials[block] -> grid.sync() ->
+// every block sums all partials in the same fixed order (so every block,
+// and every run, gets the bitwise same scalars; no atomics) -> local axpy
+// on the slice. The newest pair's s.y and y.y ride along in the first
+// stage or group. Each thread copies, reads and writes only its own
+// 16-byte chunks of every shared buffer, so the buffers need no block
+// barrier: a thread's cp.async wait covers all it reads.
 //
 // Bound on this card: each call reads 2*count*n_pad*sizeof(pair) bytes of
 // history once, plus v and out: at m = 100 on the deep net (n_pad 242,816)
 // 196.2 MB f32 = 58.6 us, 99.1 MB bf16 = 29.6 us at 3.35 TB/s. A ring
 // larger than the 50 MB L2 is read twice by any streaming schedule (the
 // forward pass needs every pair again): 117 us there, and at m = 50,
-// n = 2M f32 (800 MB) 482 us against 244 us read once. The 2*count grid
-// barriers (a few us each) are expected to set the pace at small n.
+// n = 2M f32 (800 MB) 482 us against 244 us read once. K1 and K3 run
+// 2*count grid barriers (a few us each), which set the pace at small n;
+// K2 moves the same bytes with 2*ceil(count/K) barriers (50 at K = 4 and
+// 26 at K = 8 on the deep m=100 ring, against 200 at K = 1).
 //
 // The grid is sized so that every block is resident at once (a condition
 // of grid.sync()): occupancy x SMs, capped by the number of 1024-element
@@ -71,7 +91,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSliceUnit = kThreads * 4;  // grid cap: one float4 of q per thread
 constexpr int kSliceAlign = 8;            // slices hold whole 16-byte chunks of f32 and bf16
 constexpr int kMaxM = 1024;               // alphas live in shared memory
-constexpr int kNumPartials = 3;           // values reduced per stage (at most)
+constexpr int kMaxGroup = 8;              // K2's largest group of pairs
+// Values reduced per stage or group (at most): K2's first group at K = 8,
+// 8 + 28 dots plus gamma's s.y and y.y.
+constexpr int kNumPartials = 2 + kMaxGroup * (kMaxGroup + 1) / 2;
 
 enum Kind { kResident = 0, kStreaming = 1, kBlocked = 2 };
 
@@ -205,12 +228,64 @@ __device__ void grid_sum(float (&vals)[NV], const Params& p, int buf,
   for (int c = 0; c < NV; ++c) vals[c] = bcast[c];
 }
 
+// Warp sums of NV values: red[c * kWarps + warp] = value c summed over the
+// warp's lanes by a shuffle tree (the trees of all values interleave).
+template <int NV>
+__device__ __forceinline__ void warp_sums(const float (&vals)[NV], float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    float x = vals[c];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+    if (lane == 0) red[c * kWarps + warp] = x;
+  }
+}
+
+// grid_sum for K2's groups of up to kNumPartials values. grid_sum's steps
+// take one value after another (thread 0 adds every value's warp sums, and
+// each value's partials are read from L2 in a loop of its own), ~0.6 us per
+// value on an H100; here each step takes all values at once: thread c adds
+// value c's warp sums, and after grid.sync() thread t reads block t's
+// partials of all values with independent loads, then the same two steps
+// sum them. Every block adds in the same fixed order and returns
+// bitwise-equal totals.
+template <int NV>
+__device__ void grid_sum_wide(float (&vals)[NV], const Params& p, int buf,
+                              cg::grid_group& grid, float* red, float* bcast) {
+  static_assert(NV <= kNumPartials && NV <= kThreads, "too many values");
+  const int nblk = gridDim.x;
+  const int c = threadIdx.x;  // the value this thread adds up, if c < NV
+  float* part = p.partials + (size_t)buf * kNumPartials * nblk;
+  auto add_warps = [&]() {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red[c * kWarps + w];
+    return s;
+  };
+  warp_sums<NV>(vals, red);
+  __syncthreads();
+  if (c < NV) __stcg(part + c * nblk + blockIdx.x, add_warps());
+  grid.sync();  // also orders this block's reads of red before its next writes
+  float acc[NV] = {};
+  for (int b = threadIdx.x; b < nblk; b += kThreads) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) acc[v] += __ldcg(part + v * nblk + b);
+  }
+  warp_sums<NV>(acc, red);
+  __syncthreads();
+  if (c < NV) bcast[c] = add_warps();
+  __syncthreads();
+#pragma unroll
+  for (int v = 0; v < NV; ++v) vals[v] = bcast[v];
+}
+
+// K1 (kResident) and K3 (kBlocked): one grid reduction per stage.
 template <typename T, int kKind>
 __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
   using C = Chunk<T>;
   constexpr int kN = C::kN;
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem[];  // q slice, then the (s, y) slice buffers
+  extern __shared__ float4 smem[];  // q slice, then the resident (s, y) slices
   __shared__ float alphas[kMaxM];
   __shared__ float red[kNumPartials * kWarps];
   __shared__ float bcast[kNumPartials];
@@ -222,7 +297,7 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
   const int head = *p.head;
   const int count = min(*p.count, m);  // <= m by the ring's invariant
   float* q = reinterpret_cast<float*>(smem);
-  T* rows = reinterpret_cast<T*>(q + slice);  // staged pairs (not kBlocked)
+  T* rows = reinterpret_cast<T*>(q + slice);  // resident pairs (kResident)
   const T* S = static_cast<const T*>(p.S) + start;
   const T* Y = static_cast<const T*>(p.Y) + start;
 
@@ -233,10 +308,7 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
   // Offset of stage t's row in S and Y: rows reach 2 * 50 * 4M * 4 bytes.
   auto row_off = [&](int t) { return (size_t)slot(pair_of(t)) * p.n_pad; };
   // Shared (s, y) slices of stage t's pair: s at +0, y at +slice.
-  auto buf = [&](int t) -> T* {
-    const int b = kKind == kResident ? pair_of(t) : (t & 1);
-    return rows + (size_t)b * 2 * slice;
-  };
+  auto buf = [&](int t) -> T* { return rows + (size_t)pair_of(t) * 2 * slice; };
   // Copy stage t's pair into its buffer: this thread's chunks, one group.
   auto fetch = [&](int t) {
     const size_t off = row_off(t);
@@ -250,8 +322,6 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
 
   if constexpr (kKind == kResident) {
     for (int t = 0; t < count; ++t) fetch(t);
-  } else if constexpr (kKind == kStreaming) {
-    if (count > 0) fetch(0);
   }
   for (int c = threadIdx.x; c < nchunk; c += kThreads) {
     float x[kN];
@@ -264,18 +334,11 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
   for (int t = 0; t < 2 * count; ++t) {
     const bool bwd = t < count;
     const int i = slot(pair_of(t));
-    if constexpr (kKind == kStreaming) {
-      if (t + 1 < 2 * count) {
-        fetch(t + 1);  // the next pair streams in behind this stage
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-    } else if constexpr (kKind == kResident) {
+    if constexpr (kKind == kResident) {
       if (t == 0) cp_async_wait<0>();
     }
-    // kBlocked reads this stage's slices from global memory; the others
-    // from their shared buffers.
+    // kBlocked reads this stage's slices from global memory; kResident
+    // from its shared buffers.
     const T* s_row = kKind == kBlocked ? S + row_off(t) : buf(t);
     const T* y_row = kKind == kBlocked ? Y + row_off(t) : s_row + slice;
     const T* dot_row = bwd ? s_row : y_row;   // backward s.q, forward y.z
@@ -353,38 +416,258 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
   }
 }
 
+// K2 (kStreaming): groups of K pairs, one grid reduction per group.
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads) two_loop_grouped_kernel(Params p) {
+  using C = Chunk<T>;
+  constexpr int kN = C::kN;
+  constexpr int kV = K * (K + 1) / 2;  // a group's dots: K with the vector, then the cross dots
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem[];  // q slice, then two buffers of K (s, y) slice pairs
+  __shared__ float alphas[kMaxM];
+  __shared__ float coefs[K];
+  __shared__ float red[(kV + 2) * kWarps];
+  __shared__ float bcast[kV + 2];
+
+  const int slice = p.slice;
+  const int start = blockIdx.x * slice;
+  const int nchunk = max(0, min(slice, p.n_pad - start)) / kN;
+  const int m = p.m;
+  const int head = *p.head;
+  const int count = min(*p.count, m);  // <= m by the ring's invariant
+  const int per_pass = (count + K - 1) / K;
+  const int ngroups = 2 * per_pass;
+  float* q = reinterpret_cast<float*>(smem);
+  T* rows = reinterpret_cast<T*>(q + slice);
+  const T* S = static_cast<const T*>(p.S) + start;
+  const T* Y = static_cast<const T*>(p.Y) + start;
+
+  // Group g of ngroups takes stages first(g) .. first(g) + len(g) - 1 of
+  // its pass, backward (g < per_pass) from the newest pair, forward from
+  // the oldest; the last group of a pass takes what is left.
+  auto first = [&](int g) { return (g < per_pass ? g : g - per_pass) * K; };
+  auto len = [&](int g) { return min(K, count - first(g)); };
+  auto pair_of = [&](int g, int l) {  // the j-th newest pair is group g's l-th
+    const int u = first(g) + l;
+    return g < per_pass ? u : count - 1 - u;
+  };
+  auto slot = [&](int j) { return ((head - 1 - j) % m + m) % m; };
+  // Shared (s, y) slices of group g's l-th pair: s at +0, y at +slice.
+  auto staged = [&](int g, int l) -> T* {
+    return rows + (size_t)((g & 1) * K + l) * 2 * slice;
+  };
+  // Copy group g's pairs into its buffer: this thread's chunks, one
+  // cp.async group; the missing pairs of a last group are not fetched.
+  auto fetch = [&](int g) {
+    for (int l = 0; l < len(g); ++l) {
+      const size_t off = (size_t)slot(pair_of(g, l)) * p.n_pad;  // rows reach 1.6 GB
+      T* dst = staged(g, l);
+      for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+        cp_async16(dst + c * kN, S + off + c * kN);
+        cp_async16(dst + slice + c * kN, Y + off + c * kN);
+      }
+    }
+    cp_async_commit();
+  };
+  // Add chunk c's share of group h's dots to vals, x being the working
+  // vector there: backward s_j.q and s_j.y_l, forward y_j.z and y_j.s_l
+  // (l < j), the cross dot (j, l) at K + j(j-1)/2 + l.
+  auto add_dots = [&](int h, int c, const float (&x)[kN], float (&vals)[kV]) {
+    const bool bwd = h < per_pass;
+    const int kh = len(h);
+    float other[K][kN];  // backward y_l, forward s_l
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (j < kh) {
+        const T* row = staged(h, j);
+        float d[kN];
+        C::load((bwd ? row : row + slice) + c * kN, d);
+        float t = 0.f;
+#pragma unroll
+        for (int e = 0; e < kN; ++e) t += d[e] * x[e];
+        vals[j] += t;
+#pragma unroll
+        for (int l = 0; l < j; ++l) {
+          float u = 0.f;
+#pragma unroll
+          for (int e = 0; e < kN; ++e) u += d[e] * other[l][e];
+          vals[K + j * (j - 1) / 2 + l] += u;
+        }
+        if (j + 1 < kh) C::load((bwd ? row + slice : row) + c * kN, other[j]);
+      }
+    }
+  };
+
+  if (ngroups > 0) {  // ngroups is even: two groups stream in at once
+    fetch(0);
+    fetch(1);
+  }
+  for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+    float x[kN];
+    load_f32(p.v + start + c * kN, x);
+    store_f32(q + c * kN, x);
+  }
+
+  float gamma = 1.f;
+  float dots[kV];  // the current group's dots, summed over the grid
+  float rho_g[K];  // thread 0: rho of the current group's pairs
+  auto load_rho = [&](int g) {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int l = 0; l < K; ++l) rho_g[l] = l < len(g) ? p.rho[slot(pair_of(g, l))] : 0.f;
+    }
+  };
+  if (ngroups > 0) {  // group 0's dots with v, and the newest pair's s.y and y.y
+    cp_async_wait<1>();
+    float vals[kV] = {};
+    float sy_acc = 0.f, yy_acc = 0.f;
+    for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+      float x[kN], s[kN], y[kN];
+      load_f32(q + c * kN, x);
+      add_dots(0, c, x, vals);
+      C::load(staged(0, 0) + c * kN, s);
+      C::load(staged(0, 0) + slice + c * kN, y);
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        a += s[e] * y[e];
+        b += y[e] * y[e];
+      }
+      sy_acc += a;
+      yy_acc += b;
+    }
+    float all[kV + 2];
+#pragma unroll
+    for (int i = 0; i < kV; ++i) all[i] = vals[i];
+    all[kV] = sy_acc;
+    all[kV + 1] = yy_acc;
+    load_rho(0);
+    grid_sum_wide<kV + 2>(all, p, 0, grid, red, bcast);
+#pragma unroll
+    for (int i = 0; i < kV; ++i) dots[i] = all[i];
+    const float ys = all[kV], yy = all[kV + 1];
+    if (p.clamp_gamma) {
+      gamma = fabsf(yy) < 1e-12f ? 1.f : ys / (yy == 0.f ? 1.f : yy);
+      gamma = gamma < p.gamma_min ? p.gamma_min : gamma;  // NaN passes through
+      gamma = gamma > p.gamma_max ? p.gamma_max : gamma;
+    } else {
+      gamma = yy > 0.f ? ys / yy : 1.f;
+    }
+  }
+
+  int pbuf = 1;
+  for (int g = 0; g < ngroups; ++g) {
+    const bool bwd = g < per_pass;
+    const int kg = len(g);
+    if (threadIdx.x == 0) {  // group g's coefficients, in one fixed order
+      float cf[K];
+#pragma unroll
+      for (int l = 0; l < K; ++l) {
+        if (l < kg) {
+          float acc = dots[l];
+#pragma unroll
+          for (int b = 0; b < l; ++b) acc += cf[b] * dots[K + l * (l - 1) / 2 + b];
+          const int j = pair_of(g, l);
+          if (bwd) {  // cf = -alpha
+            const float a = rho_g[l] * acc;
+            alphas[j] = a;
+            cf[l] = -a;
+          } else {  // cf = alpha - beta
+            cf[l] = alphas[j] - rho_g[l] * acc;
+          }
+          coefs[l] = cf[l];
+        }
+      }
+    }
+    __syncthreads();  // coefs (thread 0) are read by all
+    float cf[K];
+#pragma unroll
+    for (int l = 0; l < K; ++l) cf[l] = l < kg ? coefs[l] : 0.f;
+
+    const bool more = g + 1 < ngroups;
+    if (more) cp_async_wait<0>();  // group g+1, the one copy in flight
+    const float scale = g == per_pass - 1 ? gamma : 1.f;  // end of backward: z = gamma q
+    float vals[kV] = {};
+    for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+      float x[kN];
+      load_f32(q + c * kN, x);
+#pragma unroll
+      for (int l = 0; l < K; ++l) {
+        if (l < kg) {  // backward q += cf y, forward z += cf s
+          float r[kN];
+          const T* row = staged(g, l);
+          C::load((bwd ? row + slice : row) + c * kN, r);
+#pragma unroll
+          for (int e = 0; e < kN; ++e) x[e] += cf[l] * r[e];
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kN; ++e) x[e] *= scale;
+      store_f32(q + c * kN, x);
+      if (more) add_dots(g + 1, c, x, vals);
+    }
+    if (g + 2 < ngroups) fetch(g + 2);  // into the buffer group g freed
+    if (more) {
+      load_rho(g + 1);
+      grid_sum_wide<kV>(vals, p, pbuf, grid, red, bcast);
+      pbuf ^= 1;
+#pragma unroll
+      for (int i = 0; i < kV; ++i) dots[i] = vals[i];
+    }
+  }
+
+  for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+    float x[kN];
+    load_f32(q + c * kN, x);
+    store_f32(p.out + start + c * kN, x);
+  }
+}
+
 static int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 template <typename T>
-static const void* kernel_of_type(int kind) {
+static const void* kernel_of_type(int kind, int group) {
+  if (kind == kStreaming) {
+    switch (group) {
+      case 1: return reinterpret_cast<const void*>(two_loop_grouped_kernel<T, 1>);
+      case 2: return reinterpret_cast<const void*>(two_loop_grouped_kernel<T, 2>);
+      case 4: return reinterpret_cast<const void*>(two_loop_grouped_kernel<T, 4>);
+      case 8: return reinterpret_cast<const void*>(two_loop_grouped_kernel<T, 8>);
+      default: return nullptr;
+    }
+  }
+  if (group != 1) return nullptr;
   switch (kind) {
     case kResident: return reinterpret_cast<const void*>(two_loop_kernel<T, kResident>);
-    case kStreaming: return reinterpret_cast<const void*>(two_loop_kernel<T, kStreaming>);
     case kBlocked: return reinterpret_cast<const void*>(two_loop_kernel<T, kBlocked>);
     default: return nullptr;
   }
 }
 
-static const void* kernel_of(int kind, int pair_bytes) {
-  if (pair_bytes == 4) return kernel_of_type<float>(kind);
-  if (pair_bytes == 2) return kernel_of_type<__nv_bfloat16>(kind);
+// The kernel of `kind` for pair_bytes 4 (f32) or 2 (bf16); group is K2's
+// K in {1, 2, 4, 8} and 1 for the others.
+static const void* kernel_of(int kind, int pair_bytes, int group) {
+  if (pair_bytes == 4) return kernel_of_type<float>(kind, group);
+  if (pair_bytes == 2) return kernel_of_type<__nv_bfloat16>(kind, group);
   return nullptr;
 }
 
 // Dynamic shared memory per element of a block's slice: q, plus all m
-// pairs (resident), two pairs (streaming) or none (blocked) of (s, y).
-static size_t smem_per_element(int kind, int pair_bytes, int m) {
-  const size_t pairs = kind == kResident ? 2 * (size_t)m : kind == kStreaming ? 4 : 0;
+// pairs (resident), two groups of `group` pairs (streaming) or none
+// (blocked) of (s, y).
+static size_t smem_per_element(int kind, int pair_bytes, int m, int group) {
+  const size_t pairs = kind == kResident ? 2 * (size_t)m : kind == kStreaming ? 4 * (size_t)group : 0;
   return sizeof(float) + pairs * pair_bytes;
 }
 
-// Launch geometry of `kind` for (pair_bytes, n_pad, m) on the current
-// device: the grid, the elements per block and the dynamic shared memory in
-// bytes. Returns a cudaError_t; cudaErrorInvalidValue when the slices of a
-// one-block-per-SM grid do not fit a block's shared memory.
-extern "C" int two_loop_config(int kind, int pair_bytes, int n_pad, int m, int* grid_out,
-                               int* slice_out, int* smem_out) {
-  const void* kern = kernel_of(kind, pair_bytes);
+// Launch geometry of `kind` (with K2's group size `group`, 1 for the
+// others) for (pair_bytes, n_pad, m) on the current device: the grid, the
+// elements per block and the dynamic shared memory in bytes. Returns a
+// cudaError_t; cudaErrorInvalidValue for a group no kernel has, or when the
+// slices of a one-block-per-SM grid do not fit a block's shared memory.
+extern "C" int two_loop_config(int kind, int pair_bytes, int group, int n_pad, int m,
+                               int* grid_out, int* slice_out, int* smem_out) {
+  const void* kern = kernel_of(kind, pair_bytes, group);
   if (kern == nullptr || n_pad <= 0 || n_pad % kSliceAlign != 0 || m <= 0 || m > kMaxM)
     return cudaErrorInvalidValue;
   int dev, sms, coop;
@@ -401,7 +684,7 @@ extern "C" int two_loop_config(int kind, int pair_bytes, int n_pad, int m, int* 
   const int max_dyn = optin - (int)fa.sharedSizeBytes;
   if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_dyn)) != cudaSuccess)
     return e;
-  const size_t per = smem_per_element(kind, pair_bytes, m);
+  const size_t per = smem_per_element(kind, pair_bytes, m, group);
   // Occupancy at the largest slice any grid of >= one block per SM uses.
   const int slice1 = ceil_div(ceil_div(n_pad, sms), kSliceAlign) * kSliceAlign;
   if ((size_t)slice1 * per > (size_t)max_dyn) return cudaErrorInvalidValue;
@@ -422,14 +705,15 @@ extern "C" int two_loop_config(int kind, int pair_bytes, int n_pad, int m, int* 
 }
 
 // r = H v with f32 v, rho, out and (S, Y) of pair_bytes 4 (f32) or 2
-// (bf16). `partials` holds 2 * 3 * grid floats. Returns the launch's
-// cudaError_t (0 on success).
-extern "C" int two_loop_launch(int kind, int pair_bytes, const void* v, const void* S,
+// (bf16), K2 in groups of `group` pairs. `partials` holds
+// 2 * kNumPartials * grid floats. Returns the launch's cudaError_t (0 on
+// success).
+extern "C" int two_loop_launch(int kind, int pair_bytes, int group, const void* v, const void* S,
                                const void* Y, const void* rho, const void* head,
                                const void* count, void* out, void* partials, int n_pad, int m,
                                int grid, int slice, int smem, int clamp_gamma, float gamma_min,
                                float gamma_max, void* stream) {
-  const void* kern = kernel_of(kind, pair_bytes);
+  const void* kern = kernel_of(kind, pair_bytes, group);
   if (kern == nullptr) return cudaErrorInvalidValue;
   Params p;
   p.v = static_cast<const float*>(v);

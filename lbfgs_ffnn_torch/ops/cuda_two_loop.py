@@ -3,10 +3,11 @@
 Counterpart of :mod:`lbfgs_ffnn_tpu.ops.pallas_two_loop`: the TPU kernels
 ``_kernel_resident``, ``_kernel`` and ``_kernel_blocked`` become the
 cooperative CUDA kernels ``cuda-cooperative`` (the history slices resident
-in shared memory), ``cuda-streaming`` (the rows streamed one pair ahead)
-and ``cuda-blocked`` (only q in shared memory, the rows read from global
-memory in every sweep) in ``csrc/two_loop.cu``, whose header says how each
-design maps to the card. :func:`kernel_dispatch`
+in shared memory), ``cuda-streaming`` (the rows streamed in groups of k
+pairs, one grid reduction per group; k from :func:`group_size`) and
+``cuda-blocked`` (only q in shared memory, the rows read from global memory
+in every sweep) in ``csrc/two_loop.cu``, whose header says how each design
+maps to the card. :func:`kernel_dispatch`
 is the size policy of ``pallas_dispatch``; :func:`two_loop_cuda` has the
 signature of :func:`lbfgs_ffnn_torch.ops.two_loop.two_loop`. For a CPU
 tensor it calls that plain version; for a CUDA tensor it launches the kernel
@@ -26,24 +27,69 @@ COOPERATIVE, STREAMING, BLOCKED = "cuda-cooperative", "cuda-streaming", "cuda-bl
 _KIND = {COOPERATIVE: 0, STREAMING: 1, BLOCKED: 2}  # Kind in the source
 _PAIR_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_M = 1024  # alphas live in shared memory (kMaxM in the source)
-_N_PARTIALS = 3  # kNumPartials in the source
+_N_PARTIALS = 38  # kNumPartials in the source: K2's first group at k = 8
+GROUP_SIZES = (8, 4, 2, 1)  # K2's k (two_loop_grouped_kernel<T, K>), largest first
 
 # Shared memory a one-block-per-SM grid can hold on an H100 SXM (132 SMs,
-# 227 KB a block may opt into, less the kernels' 4.2 KB of static arrays,
+# 227 KB a block may opt into, less the kernels' 5.5 KB of static arrays,
 # rounded down): every kernel keeps each block's slice of the working vector
 # and of its (s, y) buffers there, so this bounds the rings they take.
 _GRID_SMEM_BYTES = 132 * 220 * 1024
-_STAGED_PAIRS = {COOPERATIVE: None, STREAMING: 2, BLOCKED: 0}  # None: all m
+
+
+def _bytes_per_element(impl: str, m: int, pair_bytes: int, group: int = 1) -> int:
+    """Shared memory per element of a block's slice (the source's
+    ``smem_per_element``): q in f32 plus all m (s, y) pairs (cooperative),
+    two groups of ``group`` pairs (streaming) or none (blocked) in the pair
+    type."""
+    pairs = {COOPERATIVE: m, STREAMING: 2 * group, BLOCKED: 0}[impl]
+    return 4 + 2 * pairs * pair_bytes
 
 
 def fits(impl: str, n_pad: int, m: int, pair_bytes: int) -> bool:
     """Whether ``impl``'s slices fit the shared memory of a one-block-per-SM
-    grid: per element of a block's slice, q in f32 plus all m (s, y) pairs
-    (cooperative), two (streaming) or none (blocked) in the pair type (the
-    source's ``smem_per_element``)."""
-    pairs = _STAGED_PAIRS[impl]
-    per_element = 4 + 2 * (m if pairs is None else pairs) * pair_bytes
-    return n_pad * per_element <= _GRID_SMEM_BYTES
+    grid; the streaming kernel's at its least group, k = 1."""
+    return n_pad * _bytes_per_element(impl, m, pair_bytes) <= _GRID_SMEM_BYTES
+
+
+def group_fits(n_pad: int, m: int, pair_bytes: int, k: int) -> bool:
+    """Whether the streaming kernel takes the ring in groups of ``k`` pairs:
+    ``k`` one of :data:`GROUP_SIZES`, at most ``m``, and its two buffers of
+    ``k`` pairs beside q fit as :func:`fits` counts."""
+    return (k in GROUP_SIZES and k <= m
+            and n_pad * _bytes_per_element(STREAMING, m, pair_bytes, k) <= _GRID_SMEM_BYTES)
+
+
+def group_size(n_pad: int, m: int, pair_bytes: int) -> int | None:
+    """The streaming kernel's k for a ring: the largest of (8, 4, 2, 1) that
+    :func:`group_fits` allows (one grid reduction serves k pairs), None
+    where even k = 1 does not fit. The deep m=100 ring takes 4 in f32 and
+    8 in bf16; the bf16 ring at n = 2M takes 1."""
+    return next((k for k in GROUP_SIZES if group_fits(n_pad, m, pair_bytes, k)), None)
+
+
+def _group_of(impl: str, n_pad: int, m: int, pair_bytes: int, group: int | None) -> int:
+    """The group size a launch of ``impl`` runs: the streaming kernel's
+    ``group`` (:func:`group_size`'s when None), 1 for the others. Raises on
+    one the ring cannot take; never picks a smaller one instead."""
+    if impl != STREAMING:
+        if group not in (None, 1):
+            raise ValueError(f"{impl} takes no group size, got group={group}")
+        return 1
+    k = group_size(n_pad, m, pair_bytes) if group is None else group
+    if k is not None and group_fits(n_pad, m, pair_bytes, k):
+        return k
+    k = k or 1
+    if k not in GROUP_SIZES:
+        why = f"k not in {GROUP_SIZES}"
+    elif k > m:
+        why = f"k > m={m}"
+    else:
+        why = (f"its slices of q and two groups of {k} pairs need "
+               f"{n_pad * _bytes_per_element(STREAMING, m, pair_bytes, k)} bytes of shared "
+               f"memory, more than the {_GRID_SMEM_BYTES} of one block per SM")
+    raise ValueError(f"the streaming kernel cannot take this ring (n_pad={n_pad}, m={m}, "
+                     f"pair bytes {pair_bytes}) in groups of k={k}: {why}")
 
 
 def kernel_dispatch(n_pad: int, m: int, dtype, pair_dtype=None) -> tuple[str, str]:
@@ -87,9 +133,10 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(i)
-        lib.two_loop_config.argtypes = [i, i, i, i, ip, ip, ip]
+        # (kind, pair bytes, group, ...): group is K2's k, 1 for K1 and K3
+        lib.two_loop_config.argtypes = [i, i, i, i, i, ip, ip, ip]
         lib.two_loop_config.restype = i
-        lib.two_loop_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+        lib.two_loop_launch.argtypes = [i, i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                         ctypes.c_float, ctypes.c_float, p]
         lib.two_loop_launch.restype = i
         lib.two_loop_error_string.argtypes = [i]
@@ -107,16 +154,18 @@ def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 _CONFIGS: dict[tuple, tuple[int, int, int]] = {}
 
 
-def _config(lib: ctypes.CDLL, device_index: int, impl: str, pair_bytes: int, n_pad: int,
-            m: int) -> tuple[int, int, int]:
+def _config(lib: ctypes.CDLL, device_index: int, impl: str, pair_bytes: int, group: int,
+            n_pad: int, m: int) -> tuple[int, int, int]:
     """(grid, elements per block, dynamic shared bytes), queried once per
-    device, kernel and shape."""
-    key = (device_index, impl, pair_bytes, n_pad, m)
+    device, kernel, group size and shape."""
+    key = (device_index, impl, pair_bytes, group, n_pad, m)
     if key not in _CONFIGS:
         grid, slice_, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        _check(lib, lib.two_loop_config(_KIND[impl], pair_bytes, n_pad, m, ctypes.byref(grid),
-                                        ctypes.byref(slice_), ctypes.byref(smem)),
-               f"two_loop_config({impl}, n_pad={n_pad}, m={m}, pair bytes {pair_bytes})")
+        _check(lib, lib.two_loop_config(_KIND[impl], pair_bytes, group, n_pad, m,
+                                        ctypes.byref(grid), ctypes.byref(slice_),
+                                        ctypes.byref(smem)),
+               f"two_loop_config({impl}, k={group}, n_pad={n_pad}, m={m}, "
+               f"pair bytes {pair_bytes})")
         _CONFIGS[key] = (grid.value, slice_.value, smem.value)
     return _CONFIGS[key]
 
@@ -160,6 +209,7 @@ def launch(
     v: torch.Tensor,
     hist: RingState,
     *,
+    group: int | None = None,
     clamp_gamma: bool = False,
     gamma_min: float = 1e-6,
     gamma_max: float = 1e6,
@@ -168,21 +218,25 @@ def launch(
     or ``"cuda-blocked"``) on CUDA tensors, on the current stream, and add
     one to ``two_loop_cuda.LAUNCHES[impl]``. :func:`two_loop_cuda` calls it
     with the dispatch's choice; the dispatch's own measurement calls it with
-    each kernel in turn. Never reads ``head``, ``count`` or ``rho`` back to
-    the host; anything the kernel does not take raises.
+    each kernel in turn. ``group`` is the streaming kernel's k
+    (:func:`group_size`'s when None; the other kernels take none). Never
+    reads ``head``, ``count`` or ``rho`` back to the host; anything the
+    kernel does not take raises, a k the ring cannot take included.
     """
     if impl not in _KIND:
         raise ValueError(f"unknown impl {impl!r}; expected one of {sorted(_KIND)}")
     S, Y, rho, head, count = hist
     m, n_pad = S.shape
     n = v.shape[0]
-    if v.device.type != "cuda" or v.dtype != torch.float32:
-        raise ValueError(f"v must be a float32 CUDA tensor, got {v.dtype} on {v.device}")
     if S.dtype not in _PAIR_DTYPES:
         raise ValueError(f"pair dtype {S.dtype} not in (torch.float32, torch.bfloat16)")
     if n_pad % 8 or not 1 <= m <= _MAX_M:
         raise ValueError(f"ring of m={m} rows of {n_pad}: need n_pad % 8 == 0 and "
                          f"1 <= m <= {_MAX_M}")
+    pb = S.dtype.itemsize
+    k = _group_of(impl, n_pad, m, pb, group)
+    if v.device.type != "cuda" or v.dtype != torch.float32:
+        raise ValueError(f"v must be a float32 CUDA tensor, got {v.dtype} on {v.device}")
     if v.dim() != 1 or n > n_pad:
         raise ValueError(f"v must be 1-D with at most {n_pad} entries, got {tuple(v.shape)}")
     if Y.shape != S.shape or rho.shape != (m,) or head.shape != () or count.shape != ():
@@ -201,19 +255,18 @@ def launch(
         raise ValueError("ring S and Y must start on a 16-byte boundary")
 
     lib = _lib()
-    pb = S.dtype.itemsize
     with torch.cuda.device(v.device):
-        grid, slice_, smem = _config(lib, v.device.index, impl, pb, n_pad, m)
+        grid, slice_, smem = _config(lib, v.device.index, impl, pb, k, n_pad, m)
         v_pad = torch.nn.functional.pad(v, (0, n_pad - n))  # a fresh, aligned copy
         out = torch.empty(n_pad, dtype=v.dtype, device=v.device)
         partials = torch.empty(2 * _N_PARTIALS * grid, dtype=torch.float32, device=v.device)
         rc = lib.two_loop_launch(
-            _KIND[impl], pb, v_pad.data_ptr(), S.data_ptr(), Y.data_ptr(), rho.data_ptr(),
+            _KIND[impl], pb, k, v_pad.data_ptr(), S.data_ptr(), Y.data_ptr(), rho.data_ptr(),
             head.data_ptr(), count.data_ptr(), out.data_ptr(), partials.data_ptr(),
             n_pad, m, grid, slice_, smem, int(clamp_gamma), gamma_min, gamma_max,
             torch.cuda.current_stream().cuda_stream,
         )
-    _check(lib, rc, f"two_loop_launch({impl})")
+    _check(lib, rc, f"two_loop_launch({impl}, k={k})")
     two_loop_cuda.LAUNCHES[impl] += 1
     return out[:n]
 

@@ -148,3 +148,80 @@ def two_loop(
         b = rb[k] * torch.dot(Yb[k], z)
         z = z + torch.where(valid[k], alphas[k] - b, zero) * Sb[k]
     return z[:n]
+
+
+def two_loop_grouped(
+    v: torch.Tensor,
+    hist: RingState,
+    k: int,
+    *,
+    clamp_gamma: bool = False,
+    gamma_min: float = 1e-6,
+    gamma_max: float = 1e6,
+) -> torch.Tensor:
+    """:func:`two_loop` with the pairs taken ``k`` at a time: the algebra of
+    the grouped streaming kernel (``cuda-streaming``), in plain PyTorch.
+
+    Each pass runs in groups of ``k`` consecutive stages, the last group of a
+    pass holding what is left. Within a group every coefficient comes from
+    dots against the vector at the group's start (``q0``, ``z0``) and the
+    group's cross dots, newest first backward and oldest first forward:
+
+        alpha_j = rho_j (s_j.q0 - sum_{l<j} alpha_l s_j.y_l);  q = q0 - sum alpha_j y_j
+        beta_j  = rho_j (y_j.z0 + sum_{l<j} (alpha_l - beta_l) y_j.s_l);
+        z = z0 + sum (alpha_j - beta_j) s_j
+
+    which equals the sequential recursion in exact arithmetic. A test
+    oracle: it reads ``count`` and ``head`` on the host, which the solver's
+    path never does. ``k = 1`` is the sequential recursion.
+    """
+    if k < 1:
+        raise ValueError(f"group size k={k} must be at least 1")
+    S, Y, rho, head, count = hist
+    m, n_pad = S.shape
+    n = v.shape[0]
+    c = min(int(count), m)
+    q = _pad_to(v, n_pad)
+    if c == 0:
+        return q[:n].clone()
+    phys = (int(head) - 1 - torch.arange(c, device=S.device)) % m  # j-th newest
+    Sb = S.index_select(0, phys).to(v.dtype)
+    Yb = Y.index_select(0, phys).to(v.dtype)
+    rb = rho.index_select(0, phys)
+
+    ys = torch.dot(Sb[0], Yb[0])
+    yy = torch.dot(Yb[0], Yb[0])
+    one = torch.ones_like(ys)
+    safe_yy = torch.where(yy == 0, one, yy)
+    if clamp_gamma:
+        gamma = torch.where(torch.abs(yy) < 1e-12, one, ys / safe_yy)
+        gamma = torch.clamp(gamma, gamma_min, gamma_max)
+    else:
+        gamma = torch.where(yy > 0, ys / safe_yy, one)
+
+    alphas = [None] * c
+    for g0 in range(0, c, k):  # backward, newest first
+        grp = range(g0, min(g0 + k, c))
+        dots = [torch.dot(Sb[j], q) for j in grp]
+        for a, j in enumerate(grp):
+            acc = dots[a]
+            for b in range(a):
+                acc = acc - alphas[grp[b]] * torch.dot(Sb[j], Yb[grp[b]])
+            alphas[j] = rb[j] * acc
+        for j in grp:
+            q = q - alphas[j] * Yb[j]
+
+    z = q * gamma
+    oldest_first = range(c - 1, -1, -1)
+    for u0 in range(0, c, k):  # forward, oldest first
+        grp = oldest_first[u0:u0 + k]
+        dots = [torch.dot(Yb[j], z) for j in grp]
+        coefs = []
+        for a, j in enumerate(grp):
+            acc = dots[a]
+            for b in range(a):
+                acc = acc + coefs[b] * torch.dot(Yb[j], Sb[grp[b]])
+            coefs.append(alphas[j] - rb[j] * acc)
+        for coef, j in zip(coefs, grp):
+            z = z + coef * Sb[j]
+    return z[:n]

@@ -1,5 +1,6 @@
 """The Hopper two-loop kernels (K1, K2, K3) against their plain torch version
-on the card.
+on the card; K2 at each of its group sizes also against the grouped algebra
+it computes (two_loop_grouped).
 
 Imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -12,9 +13,11 @@ import pytest
 import torch
 
 from lbfgs_ffnn_torch.ops.cuda_two_loop import (
-    BLOCKED, COOPERATIVE, STREAMING, kernel_dispatch, launch, two_loop_cuda,
+    BLOCKED, COOPERATIVE, STREAMING, group_size, kernel_dispatch, launch, two_loop_cuda,
 )
-from lbfgs_ffnn_torch.ops.two_loop import empty_history_state, ring_push, two_loop
+from lbfgs_ffnn_torch.ops.two_loop import (
+    empty_history_state, ring_push, two_loop, two_loop_grouped,
+)
 
 PAIR_DTYPES = pytest.mark.parametrize("pair_dtype", [torch.float32, torch.bfloat16],
                                       ids=["f32", "bf16"])
@@ -125,3 +128,52 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         launch(COOPERATIVE, torch.ones(242762, device=cuda), _ring(100, 242762, 1, cuda))
     with pytest.raises(ValueError, match="blocked kernel"):  # above K3's capacity
         two_loop_cuda(torch.ones(7_434_248, device=cuda), _ring_on_card(1, 7_434_248, 0, cuda))
+
+
+N_DEEP = 242762  # the deep 784-256-128-64-10 net
+
+
+@functools.lru_cache(maxsize=None)
+def _deep_ring(pushes, pair_name):
+    """The deep net's m=100 ring after `pushes` seeded pushes, on the card."""
+    pair_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[pair_name]
+    return _ring_on_card(100, N_DEEP, pushes, torch.device("cuda"), pair_dtype, seed=11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair_name,group", [("f32", 1), ("f32", 2), ("f32", 4), ("bf16", 1),
+                                             ("bf16", 2), ("bf16", 4), ("bf16", 8)])
+@pytest.mark.parametrize("pushes,clamp", [(0, False), (3, True), (37, False), (130, True)])
+def test_streaming_groups_on_card(cuda, pair_name, group, pushes, clamp):
+    """K2 forced to each group size the deep m=100 ring takes (f32 k = 8
+    does not fit), on counts that are no multiple of k and a wrapped ring:
+    against the plain loop and the grouped algebra in plain torch (f32 on
+    the card, reduced in other orders: 1e-4 of max|r|), bitwise equal over
+    two calls, one launch of K2 each."""
+    hist = _deep_ring(pushes, pair_name)
+    v = torch.tensor(np.random.default_rng(1).normal(size=N_DEEP), dtype=torch.float32,
+                     device=cuda)
+    before = dict(two_loop_cuda.LAUNCHES)
+    r_k = launch(STREAMING, v, hist, group=group, clamp_gamma=clamp)
+    r_k2 = launch(STREAMING, v, hist, group=group, clamp_gamma=clamp)
+    torch.cuda.synchronize()
+    assert two_loop_cuda.LAUNCHES == {k: c + 2 * (k == STREAMING) for k, c in before.items()}
+    assert r_k.shape == (N_DEEP,) and torch.equal(r_k, r_k2)
+    for ref in (two_loop(v, hist, clamp_gamma=clamp),
+                two_loop_grouped(v, hist, group, clamp_gamma=clamp)):
+        assert float((r_k - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_streaming_group_sizes_of_the_deep_rings(cuda):
+    """The dispatch's pick for the deep rings: K2 at k = 4 (f32) and 8
+    (bf16); forcing k = 8 on the f32 ring raises, it does not shrink k."""
+    for pair_name, want in (("f32", 4), ("bf16", 8)):
+        hist = _deep_ring(3, pair_name)
+        assert kernel_dispatch(hist.S.shape[1], 100, torch.float32, hist.S.dtype)[0] == STREAMING
+        assert group_size(hist.S.shape[1], 100, hist.S.dtype.itemsize) == want
+    v = torch.ones(N_DEEP, device=cuda)
+    before = dict(two_loop_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="groups of k=8"):
+        launch(STREAMING, v, _deep_ring(3, "f32"), group=8)
+    assert two_loop_cuda.LAUNCHES == before

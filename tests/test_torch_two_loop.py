@@ -1,9 +1,13 @@
 """The port's curvature ring and two-loop recursion: ring mechanics, the plain
 torch recursion against the JAX loop form (f64) and the Pallas kernels
 (f32, interpret mode: the streaming and the rows-blocked one) and a dense
-inverse-Hessian oracle; the Hopper dispatch's picks and reasons. The Hopper
-kernel's own test, which needs the card, is tests/test_torch_cuda.py."""
+inverse-Hessian oracle; the grouped algebra of the streaming Hopper kernel
+(two_loop_grouped) against the same references and against the f64
+recursion in f32; the Hopper dispatch's picks and reasons, and the
+streaming kernel's group sizes. The Hopper kernels' own tests, which need
+the card, are in tests/test_torch_cuda.py."""
 
+import functools
 import sys
 
 import jax.numpy as jnp
@@ -17,7 +21,7 @@ from lbfgs_ffnn_tpu.ops.pallas_two_loop import (
     _two_loop_pallas_blocked, pallas_dispatch, two_loop_pallas,
 )
 from lbfgs_ffnn_torch.ops.cuda_two_loop import (
-    BLOCKED, COOPERATIVE, STREAMING, kernel_dispatch, launch, two_loop_cuda,
+    BLOCKED, COOPERATIVE, STREAMING, group_size, kernel_dispatch, launch, two_loop_cuda,
 )
 
 # the modules (their packages re-export a function of the same name)
@@ -196,6 +200,36 @@ def test_kernel_dispatch_picks(n_pad, m, pair_dtype, want):
     assert kernel_dispatch(n_pad, m, torch.float32, pair_dtype) == (want, "")
 
 
+@pytest.mark.parametrize("n_pad,m,pair_dtype,want", [
+    (242816, 100, torch.float32, 4),     # deep net m=100: k = 8 needs 32 MB
+    (242816, 100, torch.bfloat16, 8),
+    (2_000_000, 50, torch.bfloat16, 1),  # the large path's bf16 ring: K2 as it was
+    (1024, 3, torch.float32, 2),         # k <= m
+    (2_000_000, 50, torch.float32, None),  # not even two f32 pairs fit (K3's ring)
+])
+def test_group_size(n_pad, m, pair_dtype, want):
+    """The streaming kernel's group: the largest of 8, 4, 2, 1 pairs (at
+    most m) whose two buffers fit beside q; none where its k = 1 does not,
+    which is where the dispatch gives the ring to K3."""
+    assert group_size(n_pad, m, pair_dtype.itemsize) == want
+    assert (want is not None) == (kernel_dispatch(n_pad, m, torch.float32, pair_dtype)[0]
+                                  in (COOPERATIVE, STREAMING))
+
+
+@pytest.mark.parametrize("impl,m,n,group,why", [
+    (STREAMING, 8, 240_000, 8, "need 31680000 bytes"),  # two groups of 8 f32 pairs
+    (STREAMING, 8, 1000, 3, "k not in"),
+    (STREAMING, 3, 1000, 4, "k > m=3"),
+    (BLOCKED, 3, 1000, 2, "takes no group size"),
+])
+def test_launch_refuses_a_group_the_ring_cannot_take(impl, m, n, group, why):
+    """A k the ring cannot take raises with its reason before anything is
+    launched; no smaller k is taken instead."""
+    hist = ttl.empty_history_state(m, n, torch.float32)
+    with pytest.raises(ValueError, match=why):
+        launch(impl, torch.zeros(n), hist, group=group)
+
+
 def test_cuda_wrapper_on_cpu_is_plain():
     """A CPU tensor takes the plain version and launches nothing; launching
     a kernel on it is an error."""
@@ -308,3 +342,128 @@ def test_plain_bf16_ring_matches_pallas_blocked():
     t = torch_ring(m, n, pairs, torch.float32, pair_dtype=torch.bfloat16)
     np.testing.assert_allclose(ttl.two_loop(torch.tensor(v), t).numpy(), r_p, rtol=5e-5,
                                atol=5e-5)
+
+
+GROUPS = pytest.mark.parametrize("group", [1, 2, 4, 8])
+# CASES and rings whose counts are no multiple of 4 or 8: partial last groups
+GROUP_CASES = CASES + [(20, 13, 301), (12, 17, 257)]
+
+
+@GROUPS
+@pytest.mark.parametrize("m,k,n", GROUP_CASES)
+@pytest.mark.parametrize("clamp", [False, True])
+def test_grouped_matches_jax_f64(group, m, k, n, clamp):
+    """The grouped algebra of the streaming kernel is the recursion: in f64
+    it equals JAX's loop form on empty, partial, full and wrapped rings at
+    odd n to rtol 1e-10 (the group's cross dots reorder the sums)."""
+    v, hist, r_j = _jax_f64_case(m, k, n, clamp)
+    r_t = ttl.two_loop_grouped(v, hist, group, clamp_gamma=clamp)
+    assert r_t.shape == (n,)
+    np.testing.assert_allclose(r_t.numpy(), r_j, rtol=1e-10, atol=1e-12)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_f64_case(m, k, n, clamp):
+    """The inputs of one GROUP_CASES ring in f64 and JAX's loop form on them
+    (shared by the group sizes)."""
+    pairs = make_pairs(n, k, seed=m + k)
+    v = np.random.default_rng(1).normal(size=n)
+    r_j = jtl.two_loop(jnp.asarray(v), jax_ring(m, n, pairs), clamp_gamma=clamp)
+    return torch.tensor(v), torch_ring(m, n, pairs), np.asarray(r_j)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_streaming_case(pair):
+    """One wrapped f32 ring (13 pushes into m=10) at a size where JAX's
+    dispatch picks its streaming kernel; the kernel's result in interpret
+    mode and the f64 recursion on the same stored rows."""
+    n, m = {"bfloat16": 400_000, "float32": 200_000}[pair], 10
+    pairs = [(s.astype(np.float32), y.astype(np.float32)) for s, y in make_pairs(n, 13, seed=8)]
+    v = np.random.default_rng(9).normal(size=n).astype(np.float32)
+    j = jax_ring(m, n, pairs, jnp.float32, pair_dtype=getattr(jnp, pair))
+    assert pallas_dispatch(jtl.ring_n_pad(j), m, jnp.float32, j.S.dtype) == ("pallas-streaming", "")
+    t = torch_ring(m, n, pairs, torch.float32, pair_dtype=getattr(torch, pair))
+    r_p = np.asarray(two_loop_pallas(jnp.asarray(v), j), dtype=np.float64)
+    t64 = t._replace(S=t.S.double(), Y=t.Y.double(), rho=t.rho.double())
+    r_64 = ttl.two_loop(torch.tensor(v, dtype=torch.float64), t64).numpy()
+    return torch.tensor(v), t, r_p, r_64
+
+
+@GROUPS
+@pytest.mark.parametrize("pair", ["float32", "bfloat16"])
+def test_grouped_matches_pallas_streaming(group, pair):
+    """The grouped algebra in f32 against JAX's streaming kernel (K2's TPU
+    counterpart, interpret mode), held as test_plain_matches_pallas_streaming
+    holds the plain loop: both to the f64 recursion on the same stored rows,
+    the grouped error at most twice the kernel's, and the two within 1e-3 of
+    max|r| of each other."""
+    v, t, r_p, r_64 = _pallas_streaming_case(pair)
+    r_g = ttl.two_loop_grouped(v, t, group).double().numpy()
+    err_g, err_p = np.abs(r_g - r_64).max(), np.abs(r_p - r_64).max()
+    assert err_g <= 2 * err_p
+    assert np.abs(r_g - r_p).max() <= 1e-3 * np.abs(r_p).max()
+
+
+@functools.lru_cache(maxsize=None)
+def _f64_ring(name):
+    """(v, ring) in f64: random rings, or the last ring and gradient a
+    30-iteration f64 L-BFGS m=20 solve of a 64-64-32-10 MLP hands its
+    two-loop, where the pairs are correlated and rho spans three decades."""
+    if name != "mlp":
+        m, k, n = {"random": (100, 37, 3001), "random-wrapped": (100, 130, 3001)}[name]
+        v = torch.tensor(np.random.default_rng(4).normal(size=n))
+        return v, torch_ring(m, n, make_pairs(n, k, seed=k))
+    from lbfgs_ffnn_torch.objectives import mlp as tmlp
+    from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, lbfgs
+
+    solver = sys.modules["lbfgs_ffnn_torch.solvers.lbfgs"]
+    dims = [64, 64, 32, 10]
+    spec = tmlp.mlp_spec(dims, ["relu", "relu", "linear"])
+    rng = np.random.default_rng(0)
+    w0 = tmlp.params_from_numpy(spec, rng.normal(size=spec.n_params) * 0.5, dtype=torch.float64)
+    aux = (torch.tensor(rng.random((64, dims[0]))),
+           torch.tensor(np.eye(dims[-1])[rng.integers(0, dims[-1], 64)]))
+    seen, plain = [], solver.two_loop
+
+    def capture(v, hist, **kw):
+        seen.append((v, hist._replace(S=hist.S.clone(), Y=hist.Y.clone(), rho=hist.rho.clone())))
+        return plain(v, hist, **kw)
+
+    solver.two_loop = capture
+    try:
+        lbfgs(tmlp.mlp_problem(spec), w0, aux,
+              LBFGSOptions(max_iters=30, tol=1e-12, m=20, two_loop_impl="plain"))
+    finally:
+        solver.two_loop = plain
+    v, hist = seen[-1]
+    assert int(hist.count) == 20 and float(hist.rho.max()) > 100 * float(hist.rho.min())
+    return v, hist
+
+
+@GROUPS
+@pytest.mark.parametrize("ring", ["random", "random-wrapped", "mlp"])
+def test_grouped_f32_error_within_twice_plain(group, ring):
+    """In f32 the grouped algebra is about as accurate as the sequential
+    loop: against the f64 recursion on the same f32 ring, its error is at
+    most twice the plain f32 loop's, over eight vectors (the ring's own v
+    and seven random ones), both as the worst entry's error (relative to
+    that vector's max |ref|) and as the RMS of the relative 2-norm errors.
+    Both are near f32 rounding, so one vector's max error alone is noisy."""
+    v64, h64 = _f64_ring(ring)
+    h32 = h64._replace(S=h64.S.float(), Y=h64.Y.float(), rho=h64.rho.float())
+    href = h32._replace(S=h32.S.double(), Y=h32.Y.double(), rho=h32.rho.double())
+    rng = np.random.default_rng(5)
+    vs = [v64.float()] + [torch.tensor(rng.normal(size=v64.shape[0]), dtype=torch.float32)
+                          for _ in range(7)]
+    sq_g = sq_p = max_g = max_p = 0.0
+    for v in vs:
+        ref = ttl.two_loop(v.double(), href)
+        d_g = ttl.two_loop_grouped(v, h32, group).double() - ref
+        d_p = ttl.two_loop(v, h32).double() - ref
+        scale, peak = float(ref.norm()), float(ref.abs().max())
+        sq_g += (float(d_g.norm()) / scale) ** 2
+        sq_p += (float(d_p.norm()) / scale) ** 2
+        max_g = max(max_g, float(d_g.abs().max()) / peak)
+        max_p = max(max_p, float(d_p.abs().max()) / peak)
+    assert 0 < max_p and max_g <= 2 * max_p  # worst entry over the eight vectors
+    assert 0 < sq_p and sq_g <= 4 * sq_p  # RMS ratio <= 2
