@@ -18,16 +18,20 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 and wrapped), at every group size k the ring takes (1, 2, 4
                 and, for bf16, 8), each also against the grouped algebra in
                 plain torch (two_loop_grouped) at its k
-  5. blocked  - the blocked kernel (K3) the same way on m=50 rings at
-                n = 2,000,000 and 4,000,000, f32 and bf16; then the diag
-                entry (lbfgs_ffnn_torch.experiments.diag_two_loop_large) at
+  5. blocked  - the blocked kernel (K3, its L2 prefetch at the distance
+                prefetch_rows gives) the same way on m=50 rings at
+                n = 2,000,000 and 4,000,000, f32 and bf16, with its distance
+                and us per stage on the wrapped ring; then the diag entry
+                (lbfgs_ffnn_torch.experiments.diag_two_loop_large) at
                 n=4,000,000, m=50
   6. table    - the dispatch table: every kernel whose slices fit (K2 in a
-                column per group size k, the one group_size picks marked)
-                and the plain version, timed at m in {10, 100} x n in
-                {101,770, 242,762} and m=50 x n in {2M, 4M}, x {f32, bf16},
+                column per group size k, the one group_size picks marked;
+                K3 on the m=50 rows in a column per prefetch distance d in
+                {1, 2, 4, prefetch_rows's d, twice that}, its d marked) and
+                the plain version, timed at m in {10, 100} x n in
+                {101,770, 242,762} and m=50 x n in {1M, 2M, 4M}, x {f32, bf16},
                 each beside its bounds (history read once, and twice where
-                the ring outgrows the L2)
+                the ring outgrows the L2) and K3's us per stage
   7. solve    - 100 iterations of L-BFGS (m=10, Armijo, ls_max_iters=20) on
                 the 784-128-10 MLP at N=60,000, f32, through the kernel, then
                 through the plain two-loop; the loss must fall, K1 must run
@@ -48,17 +52,18 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 n=2,000,000 through the harness (lbfgs_ffnn_torch.harness),
                 120 iterations under Armijo (ls_max_iters=20) and under
                 Wolfe, each through K3, through the plain two-loop, and with
-                the bf16 ring through the kernel the dispatch picks (K2 at
-                k = 1); K3 must run once per direction, the kernel and plain
-                solves agree
+                the bf16 ring through the kernel the dispatch picks (K3);
+                the kernels must run once per direction, the kernel and
+                plain solves agree
  10. result   - one JSON line with the three kernels' numbers (K2's with its
-                group size), then the last line {"ok": true, "device": {...}}
+                group size, K3's with its prefetch distance and its time at
+                each distance), then the last line {"ok": true, "device": {...}}
 
 --profile adds torch.profiler readings: each kernel's device time per call
 in the dispatch table, and the device time by kernel of 10 MNIST iterations,
 of the whole deep L-BFGS m=100 f32 solve and of the whole large Rosenbrock
 Armijo solve through K3, each beside the wall time of the same solve
-unprofiled.
+unprofiled, with the two-loop kernel's device time per iteration.
 
 Imports nothing of JAX. Full f32 throughout: TF32 is switched off.
 """
@@ -85,6 +90,7 @@ M_DEEP = 100
 M_LARGE = 50
 N_LARGE = 2_000_000
 N_LARGE_RINGS = (2_000_000, 4_000_000)
+N_MID = 1_048_576  # the JAX package's diag_two_loop_large.py at 1M: K2 and K3 both take it
 ITERS = 100
 DEEP_ITERS = 120
 DEEP_SEEDS = 8  # init seeds of the deep L-BFGS solves: the runner's 123, then 124-130
@@ -96,8 +102,9 @@ LOSS_GATE = 0.02       # final losses within 2% (the bench's quality gate)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 TIMED_CALLS = 200
-TIMED_CALLS_LARGE = 20  # per timing in the n = 2M and 4M rows
+TIMED_CALLS_LARGE = 20  # per timing in the n = 1M, 2M and 4M rows
 L2_BYTES = 50e6            # H100 L2
+K3_STAGE_US_BEFORE = 8.5   # K3's us per stage at m=50, n=2M f32 before its L2 prefetch (PERF.md)
 
 
 def say(phase: str, msg: str) -> None:
@@ -129,14 +136,20 @@ def device_phase(torch):
     return smi
 
 
+# The kernels' entry functions in csrc/two_loop.cu.
+KERNEL_NAMES = ("two_loop_resident_kernel", "two_loop_grouped_kernel", "two_loop_blocked_kernel")
+
+
 def _kernel_label(name):
-    """What ptxas's mangled entry name is: two_loop_kernel<T, kKind> is K1
-    (kind 0) or K3 (kind 2), two_loop_grouped_kernel<T, K> is K2 at k = K."""
-    tag = int(re.search(r"Li(\d+)E", name).group(1))
+    """What ptxas's mangled entry name is: two_loop_resident_kernel<T> is
+    K1, two_loop_grouped_kernel<T, K> K2 at k = K, two_loop_blocked_kernel<T>
+    K3."""
     if "two_loop_grouped_kernel" in name:
-        kind = f"streaming k={tag}"
-    elif "two_loop_kernel" in name:
-        kind = {0: "cooperative", 2: "blocked"}[tag]
+        kind = "streaming k=" + re.search(r"Li(\d+)E", name).group(1)
+    elif "two_loop_resident_kernel" in name:
+        kind = "cooperative"
+    elif "two_loop_blocked_kernel" in name:
+        kind = "blocked"
     else:
         raise RuntimeError(f"unknown entry function {name}")
     return f"{kind}, {'bf16' if 'bfloat16' in name else 'f32'} pairs"
@@ -288,7 +301,7 @@ def _kernel_device_us(torch, fn, flush, reps=20):
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and ("two_loop_kernel" in e.key or "two_loop_grouped_kernel" in e.key)) / reps
+               and any(k in e.key for k in KERNEL_NAMES)) / reps
 
 
 def _groups(n_pad, m, pair_bytes):
@@ -328,16 +341,18 @@ def stream_phase(torch, dev):
 
 
 def blocked_phase(torch, dev, ns=N_LARGE_RINGS, m=M_LARGE, diag_n=4_000_000):
-    """K3 forced onto the large rings (the dispatch may give a bf16 ring to
-    K2, so the kernel is launched by name), then the diag entry."""
+    """K3 forced onto the large rings at its prefetch distance (launched by
+    name, whichever kernel the dispatch gives a ring), then the diag
+    entry."""
     import functools
 
     import lbfgs_ffnn_torch.ops.two_loop  # noqa: F401
     from lbfgs_ffnn_torch.experiments import diag_two_loop_large
-    from lbfgs_ffnn_torch.ops.cuda_two_loop import BLOCKED, launch
+    from lbfgs_ffnn_torch.ops.cuda_two_loop import BLOCKED, launch, prefetch_rows
 
     ttl = sys.modules["lbfgs_ffnn_torch.ops.two_loop"]
     k3 = functools.partial(launch, BLOCKED)
+    flush = torch.empty(64 * 1024 * 1024, device=dev)  # 256 MB > the 50 MB L2
     worst = 0.0
     for n in ns:
         v = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
@@ -345,7 +360,14 @@ def blocked_phase(torch, dev, ns=N_LARGE_RINGS, m=M_LARGE, diag_n=4_000_000):
             rings = _rings(torch, ttl, m, n, (0, 20, m, m + 3), pd, dev, seed=6)
             worst = max(worst, _agreement(torch, ttl, {" K3": (k3, None)}, "blocked", v, rings,
                                           m, n, name)[" K3"])
+            us = _time_cold_ms(torch, lambda: k3(v, rings[m + 3]), flush, reps=5) * 1e3
+            say("blocked", f"m={m} n={n} {name}: K3 prefetches "
+                f"{prefetch_rows(rings[0].S.shape[1], pd.itemsize)} rows ahead; wrapped ring "
+                f"{us:.1f} us per call, {us / (2 * m):.2f} us per stage (time / 2 count; "
+                f"{K3_STAGE_US_BEFORE} at n=2M f32 before the prefetch), 5 calls, L2 flushed "
+                "before each")
             del rings
+    del flush
     say("blocked", f"diag entry: python -m lbfgs_ffnn_torch.experiments.diag_two_loop_large "
         f"--n {diag_n} --m {m}")
     diag = diag_two_loop_large.main(["--n", str(diag_n), "--m", str(m)])
@@ -359,31 +381,40 @@ def table_phase(torch, dev, profile: bool):
     import lbfgs_ffnn_torch.ops.two_loop  # noqa: F401
     from lbfgs_ffnn_torch.ops.cuda_two_loop import (
         BLOCKED, COOPERATIVE, STREAMING, fits, group_size, kernel_dispatch, launch,
+        prefetch_rows,
     )
 
     ttl = sys.modules["lbfgs_ffnn_torch.ops.two_loop"]
     n_mnist, n_deep = _n_params(DIMS), _n_params(DEEP_DIMS)
     flush = torch.empty(64 * 1024 * 1024, device=dev)  # 256 MB > the 50 MB L2
     say("table", f"dispatch table (CUDA events around each call, L2 flushed before it, "
-        f"{TIMED_CALLS} calls, {TIMED_CALLS_LARGE} at n >= 2M; min of 2 in turns); the "
+        f"{TIMED_CALLS} calls, {TIMED_CALLS_LARGE} at n >= 1M; min of 2 in turns); the "
         "dispatch takes the first of cooperative, streaming, blocked whose slices fit, "
-        "streaming at the largest k that fits (group_size, marked *)")
+        "streaming at the largest k that fits (group_size, marked *), blocked at "
+        "prefetch_rows's distance d (marked *)")
     rows = [(m, n) for m in (10, 100) for n in (n_mnist, n_deep)]
-    rows += [(M_LARGE, n) for n in N_LARGE_RINGS]
+    rows += [(M_LARGE, n) for n in (N_MID,) + N_LARGE_RINGS]
     table = {}
     for m, n in rows:
-        reps = TIMED_CALLS_LARGE if n >= N_LARGE else TIMED_CALLS
+        reps = TIMED_CALLS_LARGE if n >= N_MID else TIMED_CALLS
         for pd, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             hist = _rings(torch, ttl, m, n, (m + 3,), pd, dev, seed=3)[m + 3]
             vv = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
             n_pad = hist.S.shape[1]
             fns = {"plain": lambda: ttl.two_loop(vv, hist)}
             k_pick = group_size(n_pad, m, pd.itemsize)
+            d_pick = prefetch_rows(n_pad, pd.itemsize)
+            # K3's distance study on the large rings; elsewhere its own d
+            ds = sorted({1, 2, 4, d_pick, 2 * d_pick}) if m == M_LARGE else [d_pick]
             for impl in (COOPERATIVE, STREAMING, BLOCKED):
                 if impl == STREAMING:
                     for k in _groups(n_pad, m, pd.itemsize):
                         fns[f"{impl} k={k}{'*' if k == k_pick else ''}"] = (
                             lambda k=k: launch(STREAMING, vv, hist, group=k))
+                elif impl == BLOCKED:
+                    for d in ds:
+                        fns[f"{impl} d={d}{'*' if d == d_pick else ''}"] = (
+                            lambda d=d: launch(BLOCKED, vv, hist, prefetch=d))
                 elif fits(impl, n_pad, m, pd.itemsize):
                     fns[impl] = lambda impl=impl: launch(impl, vv, hist)
             for fn in fns.values():
@@ -400,11 +431,15 @@ def table_phase(torch, dev, profile: bool):
             b2_ms = two_pass_ms(n, m, pd.itemsize)
             picked = kernel_dispatch(n_pad, m, torch.float32, pd)[0]
             fastest = min((k for k in ms if k != "plain"), key=ms.get)
-            table[m, n, name] = (ms, b_ms, b_by, picked, k_pick)
+            table[m, n, name] = (ms, b_ms, b_by, picked, k_pick, d_pick)
+            per_stage = ", ".join(f"{k.split()[-1]} {t * 1e3 / (2 * m):.2f}"
+                                  for k, t in ms.items() if k.startswith(BLOCKED))
             say("table", f"  m={m:3d} n={n} {name}: "
                 + ", ".join(f"{k} {t * 1e3:.1f} us" for k, t in ms.items())
                 + f"; bound {b_ms * 1e3:.1f} us ({b_by}, history read once), "
                 f"{b2_ms * 1e3:.1f} us read twice where the ring outgrows the L2; "
+                f"K3 us per stage (time / 2 count) {per_stage} ({K3_STAGE_US_BEFORE} at n=2M "
+                "f32 before the prefetch); "
                 f"dispatch picks {picked}, fastest kernel {fastest}; {reps} calls per timing, "
                 "runs " + ", ".join(f"{k} {[round(t * 1e3, 1) for t in ts]}"
                                     for k, ts in times.items()) + device)
@@ -669,8 +704,11 @@ def _profile(torch, problem, w0, aux, opts):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in events)
+    two_loop_us = sum(e.self_device_time_total for e in events
+                      if any(name in e.key for name in KERNEL_NAMES))
     k = res.n_iters
-    say("profile", f"{k} iters: device busy {busy / k:.1f} us/iter (traced); wall "
+    say("profile", f"{k} iters: device busy {busy / k:.1f} us/iter (traced), the two-loop "
+        f"kernel {two_loop_us / k:.1f} us/iter of it ({two_loop_us / busy * 100:.1f}%); wall "
         f"{traced_us / k:.1f} us/iter traced, {[round(b / k, 1) for b in bare]} us/iter "
         f"unprofiled (same solve, this run); device idle {100 - busy / min(bare) * 100:.1f}% "
         f"of the faster unprofiled wall, {100 - busy / traced_us * 100:.1f}% of the traced wall")
@@ -697,9 +735,8 @@ def large_phase(torch, dev, profile: bool, n=N_LARGE, iters=LARGE_ITERS, m=M_LAR
     n_pad = -(-n // 128) * 128
     bf16_pick = kernel_dispatch(n_pad, m, torch.float32, torch.bfloat16)[0]
     bf16_k = group_size(n_pad, m, 2) if bf16_pick == STREAMING else None
-    if n == N_LARGE:  # K2 keeps its k = 1 design and capacity there
-        check(bf16_pick == STREAMING and bf16_k == 1,
-              f"n={n} bf16 ring goes to {bf16_pick} at k={bf16_k}, not K2 at k = 1")
+    if n == N_LARGE:  # K2 fits it only at k = 1, where K3 was the faster (PERF.md)
+        check(bf16_pick == BLOCKED, f"n={n} bf16 ring goes to {bf16_pick}, not K3")
     say("large", f"extended Rosenbrock, n={n:,}, start (-1.2, 1, ...) in f32, initial loss "
         f"{f0:.6g}; m={m}, {iters} iterations; the dispatch gives the f32 ring to "
         f"{kernel_dispatch(n_pad, m, torch.float32)[0]} and the bf16 ring to {bf16_pick}"
@@ -806,14 +843,19 @@ def main() -> None:
     launches3, large_ms = large_phase(torch, dev, args.profile)
 
     def entry(name, impl, replaces, launches, worst, m, n):
-        ms, b_ms, b_by, _, k_pick = table[m, n, "f32"]
-        key = f"{impl} k={k_pick}*" if impl == STREAMING else impl  # the dispatch's K2
+        ms, b_ms, b_by, _, k_pick, d_pick = table[m, n, "f32"]
+        # the dispatch's K2 group size and K3 prefetch distance
+        key = {STREAMING: f"{impl} k={k_pick}*", BLOCKED: f"{impl} d={d_pick}*"}.get(impl, impl)
         out = {"name": name, "route": "cuda", "source": "lbfgs_ffnn_torch/csrc/two_loop.cu",
                "replaces": replaces, "launches": launches, "max_abs_err": worst,
                "ms": ms[key], "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
         if impl == STREAMING:
             out["group"] = k_pick
+        if impl == BLOCKED:
+            out["prefetch"] = d_pick
+            out["ms_by_prefetch"] = {k.split("=")[1].rstrip("*"): t for k, t in ms.items()
+                                     if k.startswith(BLOCKED)}
         return out
 
     kernels = [

@@ -1,7 +1,8 @@
 // L-BFGS two-loop recursion r = H v: three persistent cooperative kernels,
 // each templated on the stored pair type (float or __nv_bfloat16); all
-// arithmetic is f32. K1 and K3 are two_loop_kernel<T, kKind>; K2 is
-// two_loop_grouped_kernel<T, K>, K pairs per grid reduction.
+// arithmetic is f32. K1 is two_loop_resident_kernel<T>, K2
+// two_loop_grouped_kernel<T, K> (K pairs per grid reduction), K3
+// two_loop_blocked_kernel<T>.
 //
 //   backward, newest -> oldest:  a_i = rho_i s_i.q ;  q -= a_i y_i
 //   gamma = s.y / y.y of the newest pair (1 if count == 0 or y.y <= 0;
@@ -10,8 +11,9 @@
 //   forward, oldest -> newest:   b = rho_i y_i.z ;  z += (a_i - b) s_i
 //
 // They replace the TPU kernels of lbfgs_ffnn_tpu/ops/pallas_two_loop.py:
-//   * kResident replaces _kernel_resident (K1), which pulls the whole (S, Y)
-//     history into VMEM with two bulk DMAs and runs both passes from there.
+//   * kResident (two_loop_resident_kernel) replaces _kernel_resident (K1),
+//     which pulls the whole (S, Y) history into VMEM with two bulk DMAs and
+//     runs both passes from there.
 //     Here every block copies its column slice of all `count` pairs into
 //     shared memory with cp.async at the start, then runs the 2*count stages
 //     from shared memory. It takes rings whose slices fit: about 29 MB of
@@ -35,22 +37,39 @@
 //     group g's update and accumulates group g+1's dots against the updated
 //     chunk; then the cp.async copies of group g+2 go into the buffer g
 //     freed and land behind g+1's grid reduction. That reduction
-//     (grid_sum_wide) takes all of a group's values at once, and does not
-//     pay an L2 round trip per value as grid_sum does. Thread 0 of every
-//     block solves a group's K-term triangular recursion in one fixed
+//     (grid_sum_wide) takes all of a group's values at once. Thread 0 of
+//     every block solves a group's K-term triangular recursion in one fixed
 //     order, so all blocks get bitwise-equal coefficients. bf16 rows arrive
 //     as 8 values per 16-byte copy and are upcast in registers.
-//   * kBlocked replaces _kernel_blocked (K3), which keeps only the working
-//     vector in VMEM and streams the rows through it in chunks, with gamma
-//     precomputed outside the kernel. On Hopper the working vector alone
-//     (4 bytes per element) fits the grid's shared memory up to ~7.4M
-//     elements; what no longer fits at n ~ 2M is q plus K2's two staged
-//     pairs. So each block keeps only its q slice in shared memory, and
-//     every stage's dot and axpy sweeps read the pair's slice straight from
-//     global memory with 16-byte loads (bf16: 8 values, upcast in
-//     registers); nothing is staged. Gamma's s.y and y.y ride in stage 0's
-//     sweep as in the other two, which reads the newest y there once more
-//     (JAX's XLA prelude pays the same extra row).
+//   * kBlocked (two_loop_blocked_kernel) replaces _kernel_blocked (K3),
+//     which keeps only the working vector in VMEM and streams the rows
+//     through it in chunks, with gamma precomputed outside the kernel. On
+//     Hopper the working vector alone (4 bytes per element) fits the grid's
+//     shared memory up to ~7.4M elements; what no longer fits at n ~ 2M is
+//     q plus K2's two staged pairs. So each block keeps only its q slice in
+//     shared memory, and every stage's dot and axpy sweeps read the pair's
+//     slice from global memory with 16-byte loads (bf16: 8 values, upcast
+//     in registers). Gamma's s.y and y.y ride in stage 0's sweep as in the
+//     other two, which reads the newest y there once more (JAX's XLA
+//     prelude pays the same extra row). _kernel_blocked overlapped its
+//     stages on the TPU by issuing stage t+1's DMA before stage t's
+//     compute. Here the TMA unit does the same into L2: the rows the call
+//     reads form one sequence (blocked_row: stage t's dot row, then its
+//     axpy row), and whenever a block starts a sweep on row u it issues
+//     cp.async.bulk.prefetch.L2 for its slice of row u + d, fire-and-forget,
+//     no registers or shared memory, so HBM streams the coming row through
+//     the grid barrier. d (Params::prefetch, prefetch_rows in
+//     ops/cuda_two_loop.py) is the most rows that fit a 4 MiB L2 budget, at
+//     least 1: 1 on every m=50 ring of the large path. What bounds K3 on this
+//     card (experiments/blocked_stage_study.py, n = 2M f32, PERF.md section 6): a
+//     stage moves two rows, 16 MB; its sweeps alone take 7.4 us (~2.15
+//     TB/s), its grid reduction alone 3.4 us, and the two overlap to 8.4 us.
+//     The prefetch alone streams through the reductions at 3.06 TB/s, but in
+//     the whole kernel its traffic lands beside the sweeps' own loads, not
+//     in the reductions: d = 1 takes 0.8% off, d = 2 adds 3.4% and d = 4
+//     47% (rows evicted before use); at 4M f32, whose 16 MB rows overrun
+//     the budget, d = 1 adds 29%. On the 4 MB bf16 rows at 2M it takes 10%
+//     off.
 //
 // Shared design. One block's shared memory (227 KB) cannot hold the working
 // vector (242,816 floats padded on the deep net, 971 KB), so the vector is
@@ -71,9 +90,9 @@
 // larger than the 50 MB L2 is read twice by any streaming schedule (the
 // forward pass needs every pair again): 117 us there, and at m = 50,
 // n = 2M f32 (800 MB) 482 us against 244 us read once. K1 and K3 run
-// 2*count grid barriers (a few us each), which set the pace at small n;
-// K2 moves the same bytes with 2*ceil(count/K) barriers (50 at K = 4 and
-// 26 at K = 8 on the deep m=100 ring, against 200 at K = 1).
+// 2*count grid barriers (a few us each), which set K1's pace. K2 moves the
+// same bytes with 2*ceil(count/K) barriers (50 at K = 4 and 26 at K = 8
+// on the deep m=100 ring, against 200 at K = 1).
 //
 // The grid is sized so that every block is resident at once (a condition
 // of grid.sync()): occupancy x SMs, capped by the number of 1024-element
@@ -95,6 +114,9 @@ constexpr int kMaxGroup = 8;              // K2's largest group of pairs
 // Values reduced per stage or group (at most): K2's first group at K = 8,
 // 8 + 28 dots plus gamma's s.y and y.y.
 constexpr int kNumPartials = 2 + kMaxGroup * (kMaxGroup + 1) / 2;
+// K3's L2 prefetch: a block's slice of a row goes out in bulk requests of
+// at most this many bytes, each a multiple of 16.
+constexpr int kPrefetchBytes = 16 * 1024;
 
 enum Kind { kResident = 0, kStreaming = 1, kBlocked = 2 };
 
@@ -113,6 +135,7 @@ struct Params {
   int clamp_gamma;
   float gamma_min;
   float gamma_max;
+  int prefetch;        // K3: rows of its sequence prefetched ahead into L2 (>= 1); 0 for K1, K2
 };
 
 // One 16-byte chunk of stored pair values, upcast to f32.
@@ -174,58 +197,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Sum NV values over the block; the totals are valid in thread 0.
-template <int NV>
-__device__ void block_sum(float (&vals)[NV], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int c = 0; c < NV; ++c) {
-    float x = vals[c];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-    if (lane == 0) red[c * kWarps + warp] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += red[c * kWarps + w];
-      vals[c] = s;
-    }
-  }
-  __syncthreads();  // red is free again
-}
-
-// Sum NV per-block partials over the whole grid. Every block adds the
-// partials in the same order, so all blocks return bitwise-equal totals.
-// `buf` alternates between stages: a block may write the next stage's
-// partial before a slower block has read this stage's.
-template <int NV>
-__device__ void grid_sum(float (&vals)[NV], const Params& p, int buf,
-                         cg::grid_group& grid, float* red, float* bcast) {
-  const int nblk = gridDim.x;
-  float* part = p.partials + (size_t)buf * kNumPartials * nblk;
-  block_sum<NV>(vals, red);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int c = 0; c < NV; ++c) __stcg(part + c * nblk + blockIdx.x, vals[c]);
-  }
-  grid.sync();
-#pragma unroll
-  for (int c = 0; c < NV; ++c) {
-    float acc = 0.f;
-    for (int t = threadIdx.x; t < nblk; t += kThreads) acc += __ldcg(part + c * nblk + t);
-    vals[c] = acc;
-  }
-  block_sum<NV>(vals, red);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int c = 0; c < NV; ++c) bcast[c] = vals[c];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < NV; ++c) vals[c] = bcast[c];
+// Ask the TMA unit to bring `bytes` (a multiple of 16) from 16-byte aligned
+// `gmem` into L2; nothing waits for it.
+__device__ __forceinline__ void prefetch_l2(const void* gmem, int bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               ::"l"(__cvta_generic_to_global(gmem)), "r"(bytes) : "memory");
 }
 
 // Warp sums of NV values: red[c * kWarps + warp] = value c summed over the
@@ -242,14 +218,16 @@ __device__ __forceinline__ void warp_sums(const float (&vals)[NV], float* red) {
   }
 }
 
-// grid_sum for K2's groups of up to kNumPartials values. grid_sum's steps
-// take one value after another (thread 0 adds every value's warp sums, and
-// each value's partials are read from L2 in a loop of its own), ~0.6 us per
-// value on an H100; here each step takes all values at once: thread c adds
-// value c's warp sums, and after grid.sync() thread t reads block t's
-// partials of all values with independent loads, then the same two steps
-// sum them. Every block adds in the same fixed order and returns
-// bitwise-equal totals.
+// Sum NV per-block values over the whole grid (K1 and K3: 3 in stage 0,
+// then 1; K2: a group's dots, up to kNumPartials). Each step takes all
+// values at once: thread c adds value c's warp sums into the block's
+// partial, and after grid.sync() thread t reads block t's partials of all
+// values with independent loads, then the same two steps sum them. (Taking
+// one value after another, each value's partials read from L2 in a loop of
+// its own, cost ~0.6 us per value on an H100.) Every block adds in the same
+// fixed order and returns bitwise-equal totals. `buf` alternates between
+// reductions: a block may write the next one's partials before a slower
+// block has read this one's.
 template <int NV>
 __device__ void grid_sum_wide(float (&vals)[NV], const Params& p, int buf,
                               cg::grid_group& grid, float* red, float* bcast) {
@@ -279,78 +257,49 @@ __device__ void grid_sum_wide(float (&vals)[NV], const Params& p, int buf,
   for (int v = 0; v < NV; ++v) vals[v] = bcast[v];
 }
 
-// K1 (kResident) and K3 (kBlocked): one grid reduction per stage.
-template <typename T, int kKind>
-__global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
+// The u-th row K1 and K3 read, in order: stage t = u / 2's dot row (u even),
+// then its axpy row. Stage t runs the t-th newest pair in the backward pass
+// (t < count), then the pairs back from the oldest; its dot row is s
+// backward and y forward, its axpy row the other one. Returns the pair's
+// ring slot; *is_y says whether the row is y (else s).
+__host__ __device__ inline int blocked_row(int u, int head, int count, int m, bool* is_y) {
+  const int t = u >> 1;
+  const bool bwd = t < count;
+  const int j = bwd ? t : 2 * count - 1 - t;
+  *is_y = ((u & 1) == 0) != bwd;
+  return ((head - 1 - j) % m + m) % m;
+}
+
+// The 2*count stages of K1 and K3 on this block's slice q of nchunk chunks,
+// one grid reduction each. row(u) is the block's slice of the u-th row of
+// blocked_row's sequence, wherever the kernel keeps it; starts(u) is told
+// before each sweep which row it starts on.
+template <typename T, typename Row, typename Starts>
+__device__ void run_stages(const Params& p, float* q, int nchunk, int head, int count,
+                           cg::grid_group& grid, Row row, Starts starts) {
   using C = Chunk<T>;
   constexpr int kN = C::kN;
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem[];  // q slice, then the resident (s, y) slices
   __shared__ float alphas[kMaxM];
-  __shared__ float red[kNumPartials * kWarps];
-  __shared__ float bcast[kNumPartials];
-
-  const int slice = p.slice;
-  const int start = blockIdx.x * slice;
-  const int nchunk = max(0, min(slice, p.n_pad - start)) / kN;
-  const int m = p.m;
-  const int head = *p.head;
-  const int count = min(*p.count, m);  // <= m by the ring's invariant
-  float* q = reinterpret_cast<float*>(smem);
-  T* rows = reinterpret_cast<T*>(q + slice);  // resident pairs (kResident)
-  const T* S = static_cast<const T*>(p.S) + start;
-  const T* Y = static_cast<const T*>(p.Y) + start;
-
-  // Stage t of 2*count runs the backward pass on the t-th newest pair, then
-  // the forward pass from the oldest pair up: stage t uses pair j(t).
-  auto pair_of = [&](int t) { return t < count ? t : 2 * count - 1 - t; };
-  auto slot = [&](int j) { return ((head - 1 - j) % m + m) % m; };  // j-th newest
-  // Offset of stage t's row in S and Y: rows reach 2 * 50 * 4M * 4 bytes.
-  auto row_off = [&](int t) { return (size_t)slot(pair_of(t)) * p.n_pad; };
-  // Shared (s, y) slices of stage t's pair: s at +0, y at +slice.
-  auto buf = [&](int t) -> T* { return rows + (size_t)pair_of(t) * 2 * slice; };
-  // Copy stage t's pair into its buffer: this thread's chunks, one group.
-  auto fetch = [&](int t) {
-    const size_t off = row_off(t);
-    T* dst = buf(t);
-    for (int c = threadIdx.x; c < nchunk; c += kThreads) {
-      cp_async16(dst + c * kN, S + off + c * kN);
-      cp_async16(dst + slice + c * kN, Y + off + c * kN);
-    }
-    cp_async_commit();
-  };
-
-  if constexpr (kKind == kResident) {
-    for (int t = 0; t < count; ++t) fetch(t);
-  }
-  for (int c = threadIdx.x; c < nchunk; c += kThreads) {
-    float x[kN];
-    load_f32(p.v + start + c * kN, x);
-    store_f32(q + c * kN, x);
-  }
+  __shared__ float red[3 * kWarps];
+  __shared__ float bcast[3];
 
   int pbuf = 0;
   float gamma = 1.f;
   for (int t = 0; t < 2 * count; ++t) {
     const bool bwd = t < count;
-    const int i = slot(pair_of(t));
-    if constexpr (kKind == kResident) {
-      if (t == 0) cp_async_wait<0>();
-    }
-    // kBlocked reads this stage's slices from global memory; kResident
-    // from its shared buffers.
-    const T* s_row = kKind == kBlocked ? S + row_off(t) : buf(t);
-    const T* y_row = kKind == kBlocked ? Y + row_off(t) : s_row + slice;
-    const T* dot_row = bwd ? s_row : y_row;   // backward s.q, forward y.z
-    const T* axpy_row = bwd ? y_row : s_row;  // backward y, forward s
+    bool is_y;
+    const int i = blocked_row(2 * t, head, count, p.m, &is_y);  // the stage's slot
+    const T* dot_row = row(2 * t);       // backward s.q, forward y.z
+    const T* axpy_row = row(2 * t + 1);  // backward y, forward s
 
+    starts(2 * t);
     float dot;
     if (t == 0) {  // the newest pair: s.q, s.y and y.y in one sweep
       float vals[3] = {0.f, 0.f, 0.f};
       for (int c = threadIdx.x; c < nchunk; c += kThreads) {
         float s[kN], y[kN], x[kN];
-        C::load(s_row + c * kN, s);
-        C::load(y_row + c * kN, y);
+        C::load(dot_row + c * kN, s);
+        C::load(axpy_row + c * kN, y);
         load_f32(q + c * kN, x);
         float sq = 0.f, sy = 0.f, yy = 0.f;
 #pragma unroll
@@ -363,7 +312,7 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
         vals[1] += sy;
         vals[2] += yy;
       }
-      grid_sum<3>(vals, p, pbuf, grid, red, bcast);
+      grid_sum_wide<3>(vals, p, pbuf, grid, red, bcast);
       dot = vals[0];
       const float ys = vals[1], yy = vals[2];
       if (p.clamp_gamma) {
@@ -384,7 +333,7 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
         for (int k = 0; k < kN; ++k) d += r[k] * x[k];
         vals[0] += d;
       }
-      grid_sum<1>(vals, p, pbuf, grid, red, bcast);
+      grid_sum_wide<1>(vals, p, pbuf, grid, red, bcast);
       dot = vals[0];
     }
     pbuf ^= 1;
@@ -398,6 +347,7 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
       coef = alphas[t - count] - p.rho[i] * dot;
     }
     const float scale = t == count - 1 ? gamma : 1.f;  // end of backward: z = gamma q
+    starts(2 * t + 1);
     for (int c = threadIdx.x; c < nchunk; c += kThreads) {
       float r[kN], x[kN];
       C::load(axpy_row + c * kN, r);
@@ -408,12 +358,108 @@ __global__ void __launch_bounds__(kThreads) two_loop_kernel(Params p) {
     }
     if (t == count - 1) __syncthreads();  // alphas (thread 0) are read by all
   }
+}
 
+// This block's slice of v into q, and of q into out at the end.
+template <int kN>
+__device__ __forceinline__ void load_q(const Params& p, float* q, int start, int nchunk) {
+  for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+    float x[kN];
+    load_f32(p.v + start + c * kN, x);
+    store_f32(q + c * kN, x);
+  }
+}
+
+template <int kN>
+__device__ __forceinline__ void store_q(const Params& p, const float* q, int start, int nchunk) {
   for (int c = threadIdx.x; c < nchunk; c += kThreads) {
     float x[kN];
     load_f32(q + c * kN, x);
     store_f32(p.out + start + c * kN, x);
   }
+}
+
+// K1 (kResident): every block's slices of all pairs in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) two_loop_resident_kernel(Params p) {
+  constexpr int kN = Chunk<T>::kN;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem[];  // q slice, then the (s, y) slices of every slot
+
+  const int slice = p.slice;
+  const int start = blockIdx.x * slice;
+  const int nchunk = max(0, min(slice, p.n_pad - start)) / kN;
+  const int m = p.m;
+  const int head = *p.head;
+  const int count = min(*p.count, m);  // <= m by the ring's invariant
+  float* q = reinterpret_cast<float*>(smem);
+  T* rows = reinterpret_cast<T*>(q + slice);  // slot i: s at 2 i slice, y after it
+  const T* S = static_cast<const T*>(p.S) + start;
+  const T* Y = static_cast<const T*>(p.Y) + start;
+
+  // Copy the pairs into their buffers: this thread's chunks, one group.
+  for (int t = 0; t < count; ++t) {
+    bool is_y;
+    const int i = blocked_row(2 * t, head, count, m, &is_y);
+    const size_t off = (size_t)i * p.n_pad;
+    T* dst = rows + (size_t)i * 2 * slice;
+    for (int c = threadIdx.x; c < nchunk; c += kThreads) {
+      cp_async16(dst + c * kN, S + off + c * kN);
+      cp_async16(dst + slice + c * kN, Y + off + c * kN);
+    }
+  }
+  cp_async_commit();
+  load_q<kN>(p, q, start, nchunk);
+  cp_async_wait<0>();
+
+  auto row = [&](int u) -> const T* {
+    bool is_y;
+    const int i = blocked_row(u, head, count, m, &is_y);
+    return rows + ((size_t)i * 2 + is_y) * slice;
+  };
+  run_stages<T>(p, q, nchunk, head, count, grid, row, [](int) {});
+  store_q<kN>(p, q, start, nchunk);
+}
+
+// K3 (kBlocked): only q in shared memory; the rows are read from global
+// memory, each prefetched into L2 p.prefetch rows of the sequence ahead.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) two_loop_blocked_kernel(Params p) {
+  constexpr int kN = Chunk<T>::kN;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem[];  // q slice
+
+  const int slice = p.slice;
+  const int start = blockIdx.x * slice;
+  const int nchunk = max(0, min(slice, p.n_pad - start)) / kN;
+  const int m = p.m;
+  const int head = *p.head;
+  const int count = min(*p.count, m);  // <= m by the ring's invariant
+  const int nrows = 4 * count;         // two rows per stage
+  const int d = min(p.prefetch, nrows);  // a larger distance prefetches no more
+  float* q = reinterpret_cast<float*>(smem);
+  const T* S = static_cast<const T*>(p.S) + start;
+  const T* Y = static_cast<const T*>(p.Y) + start;
+
+  auto row = [&](int u) -> const T* {
+    bool is_y;
+    const int i = blocked_row(u, head, count, m, &is_y);
+    return (is_y ? Y : S) + (size_t)i * p.n_pad;  // rows reach 2 * 50 * 7.4M * 4 bytes
+  };
+  // This block's slice of row u into L2, in requests of up to
+  // kPrefetchBytes spread over the threads; nothing past the sequence.
+  auto prefetch = [&](int u) {
+    if (u >= nrows) return;
+    const char* src = reinterpret_cast<const char*>(row(u));
+    const int bytes = nchunk * 16;  // whole 16-byte chunks
+    for (int b = threadIdx.x * kPrefetchBytes; b < bytes; b += kThreads * kPrefetchBytes)
+      prefetch_l2(src + b, min(kPrefetchBytes, bytes - b));
+  };
+
+  for (int u = 0; u < d; ++u) prefetch(u);
+  load_q<kN>(p, q, start, nchunk);
+  run_stages<T>(p, q, nchunk, head, count, grid, row, [&](int u) { prefetch(u + d); });
+  store_q<kN>(p, q, start, nchunk);
 }
 
 // K2 (kStreaming): groups of K pairs, one grid reduction per group.
@@ -502,11 +548,7 @@ __global__ void __launch_bounds__(kThreads) two_loop_grouped_kernel(Params p) {
     fetch(0);
     fetch(1);
   }
-  for (int c = threadIdx.x; c < nchunk; c += kThreads) {
-    float x[kN];
-    load_f32(p.v + start + c * kN, x);
-    store_f32(q + c * kN, x);
-  }
+  load_q<kN>(p, q, start, nchunk);
 
   float gamma = 1.f;
   float dots[kV];  // the current group's dots, summed over the grid
@@ -615,12 +657,7 @@ __global__ void __launch_bounds__(kThreads) two_loop_grouped_kernel(Params p) {
       for (int i = 0; i < kV; ++i) dots[i] = vals[i];
     }
   }
-
-  for (int c = threadIdx.x; c < nchunk; c += kThreads) {
-    float x[kN];
-    load_f32(q + c * kN, x);
-    store_f32(p.out + start + c * kN, x);
-  }
+  store_q<kN>(p, q, start, nchunk);
 }
 
 static int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -638,8 +675,8 @@ static const void* kernel_of_type(int kind, int group) {
   }
   if (group != 1) return nullptr;
   switch (kind) {
-    case kResident: return reinterpret_cast<const void*>(two_loop_kernel<T, kResident>);
-    case kBlocked: return reinterpret_cast<const void*>(two_loop_kernel<T, kBlocked>);
+    case kResident: return reinterpret_cast<const void*>(two_loop_resident_kernel<T>);
+    case kBlocked: return reinterpret_cast<const void*>(two_loop_blocked_kernel<T>);
     default: return nullptr;
   }
 }
@@ -705,16 +742,17 @@ extern "C" int two_loop_config(int kind, int pair_bytes, int group, int n_pad, i
 }
 
 // r = H v with f32 v, rho, out and (S, Y) of pair_bytes 4 (f32) or 2
-// (bf16), K2 in groups of `group` pairs. `partials` holds
-// 2 * kNumPartials * grid floats. Returns the launch's cudaError_t (0 on
-// success).
-extern "C" int two_loop_launch(int kind, int pair_bytes, int group, const void* v, const void* S,
-                               const void* Y, const void* rho, const void* head,
+// (bf16), K2 in groups of `group` pairs, K3 prefetching `prefetch` rows
+// ahead (>= 1; 0 for K1 and K2). `partials` holds 2 * kNumPartials * grid
+// floats. Returns the launch's cudaError_t (0 on success).
+extern "C" int two_loop_launch(int kind, int pair_bytes, int group, int prefetch, const void* v,
+                               const void* S, const void* Y, const void* rho, const void* head,
                                const void* count, void* out, void* partials, int n_pad, int m,
                                int grid, int slice, int smem, int clamp_gamma, float gamma_min,
                                float gamma_max, void* stream) {
   const void* kern = kernel_of(kind, pair_bytes, group);
-  if (kern == nullptr) return cudaErrorInvalidValue;
+  if (kern == nullptr || (kind == kBlocked ? prefetch < 1 : prefetch != 0))
+    return cudaErrorInvalidValue;
   Params p;
   p.v = static_cast<const float*>(v);
   p.S = S;
@@ -730,6 +768,7 @@ extern "C" int two_loop_launch(int kind, int pair_bytes, int group, const void* 
   p.clamp_gamma = clamp_gamma;
   p.gamma_min = gamma_min;
   p.gamma_max = gamma_max;
+  p.prefetch = prefetch;
   void* args[] = {&p};
   cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(kThreads), args, (size_t)smem,
                                               static_cast<cudaStream_t>(stream));

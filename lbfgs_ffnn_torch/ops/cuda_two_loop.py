@@ -6,8 +6,9 @@ cooperative CUDA kernels ``cuda-cooperative`` (the history slices resident
 in shared memory), ``cuda-streaming`` (the rows streamed in groups of k
 pairs, one grid reduction per group; k from :func:`group_size`) and
 ``cuda-blocked`` (only q in shared memory, the rows read from global memory
-in every sweep) in ``csrc/two_loop.cu``, whose header says how each design
-maps to the card. :func:`kernel_dispatch`
+in every sweep, each prefetched into L2 :func:`prefetch_rows` rows ahead)
+in ``csrc/two_loop.cu``, whose header says how each design maps to the
+card. :func:`kernel_dispatch`
 is the size policy of ``pallas_dispatch``; :func:`two_loop_cuda` has the
 signature of :func:`lbfgs_ffnn_torch.ops.two_loop.two_loop`. For a CPU
 tensor it calls that plain version; for a CUDA tensor it launches the kernel
@@ -35,6 +36,18 @@ GROUP_SIZES = (8, 4, 2, 1)  # K2's k (two_loop_grouped_kernel<T, K>), largest fi
 # rounded down): every kernel keeps each block's slice of the working vector
 # and of its (s, y) buffers there, so this bounds the rings they take.
 _GRID_SMEM_BYTES = 132 * 220 * 1024
+
+# L2 the blocked kernel's prefetch may fill ahead of its sweeps. Measured on
+# an H100 (PERF.md §6): one row ahead is as fast as any distance on the
+# m=50 rings, and more rows ahead are evicted from the 50 MB L2 before use
+# (a 16 MiB budget, two 8 MB f32 rows ahead, was 4-5% slower at n = 2M).
+L2_PREFETCH_BUDGET = 4 * 1024 * 1024
+
+# Rings the streaming kernel takes only at k = 1 go to the blocked kernel
+# from this padded row length on (PERF.md §6, on an H100): at m = 50 the
+# blocked kernel was 4.6% faster at n = 2M bf16 and 4.6% slower at n = 1M
+# f32, where a stage moves the same 8 MB.
+_K3_OVER_K2_AT_K1 = 2_000_000
 
 
 def _bytes_per_element(impl: str, m: int, pair_bytes: int, group: int = 1) -> int:
@@ -66,6 +79,31 @@ def group_size(n_pad: int, m: int, pair_bytes: int) -> int | None:
     where even k = 1 does not fit. The deep m=100 ring takes 4 in f32 and
     8 in bf16; the bf16 ring at n = 2M takes 1."""
     return next((k for k in GROUP_SIZES if group_fits(n_pad, m, pair_bytes, k)), None)
+
+
+def prefetch_rows(n_pad: int, pair_bytes: int) -> int:
+    """How many rows ahead of its sweeps the blocked kernel prefetches into
+    L2: the most rows of ``n_pad * pair_bytes`` bytes that fit
+    :data:`L2_PREFETCH_BUDGET`, at least 1: 1 at n = 2M and 4M, f32 and
+    bf16 (the 4 MB bf16 rows at 2M just fit), and at K3's reach, whose
+    29.7 MB f32 rows overrun the budget."""
+    return max(1, L2_PREFETCH_BUDGET // (n_pad * pair_bytes))
+
+
+def _prefetch_of(impl: str, n_pad: int, pair_bytes: int, prefetch: int | None) -> int:
+    """The prefetch distance a launch of ``impl`` runs: the blocked kernel's
+    ``prefetch`` (:func:`prefetch_rows`'s when None), 0 for the others,
+    which take none."""
+    if impl != BLOCKED:
+        if prefetch is not None:
+            raise ValueError(f"{impl} takes no prefetch distance, got prefetch={prefetch}")
+        return 0
+    if prefetch is None:
+        return prefetch_rows(n_pad, pair_bytes)
+    if prefetch < 1:
+        raise ValueError(f"the blocked kernel's prefetch distance must be >= 1 row, "
+                         f"got prefetch={prefetch}")
+    return prefetch
 
 
 def _group_of(impl: str, n_pad: int, m: int, pair_bytes: int, group: int | None) -> int:
@@ -104,7 +142,12 @@ def kernel_dispatch(n_pad: int, m: int, dtype, pair_dtype=None) -> tuple[str, st
     reason)``; the wrapper then raises with the reason instead of
     substituting another path. The order is measured: where two kernels
     take a ring, the one listed first was the faster on an H100
-    (chip_smoke.py phase "table", table in PERF.md).
+    (chip_smoke.py phase "table", table in PERF.md). One exception, also
+    measured: a ring the streaming kernel takes only in groups of k = 1
+    goes to the blocked kernel from n_pad = 2,000,000 on (the large path's
+    bf16 ring), where one pair per grid reduction streamed through shared
+    memory lost to the blocked kernel's rows read from global memory with
+    their L2 prefetch.
     """
     pd = pair_dtype if pair_dtype is not None else dtype
     if dtype != torch.float32:
@@ -118,7 +161,8 @@ def kernel_dispatch(n_pad: int, m: int, dtype, pair_dtype=None) -> tuple[str, st
     pb = pd.itemsize
     if fits(COOPERATIVE, n_pad, m, pb):
         return COOPERATIVE, ""
-    if fits(STREAMING, n_pad, m, pb):
+    if fits(STREAMING, n_pad, m, pb) and (group_size(n_pad, m, pb) > 1
+                                          or n_pad < _K3_OVER_K2_AT_K1):
         return STREAMING, ""
     if fits(BLOCKED, n_pad, m, pb):
         return BLOCKED, ""
@@ -136,7 +180,8 @@ def _lib() -> ctypes.CDLL:
         # (kind, pair bytes, group, ...): group is K2's k, 1 for K1 and K3
         lib.two_loop_config.argtypes = [i, i, i, i, i, ip, ip, ip]
         lib.two_loop_config.restype = i
-        lib.two_loop_launch.argtypes = [i, i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+        # (kind, pair bytes, group, prefetch, ...): prefetch is K3's distance, 0 for K1, K2
+        lib.two_loop_launch.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                         ctypes.c_float, ctypes.c_float, p]
         lib.two_loop_launch.restype = i
         lib.two_loop_error_string.argtypes = [i]
@@ -210,6 +255,7 @@ def launch(
     hist: RingState,
     *,
     group: int | None = None,
+    prefetch: int | None = None,
     clamp_gamma: bool = False,
     gamma_min: float = 1e-6,
     gamma_max: float = 1e6,
@@ -219,9 +265,11 @@ def launch(
     one to ``two_loop_cuda.LAUNCHES[impl]``. :func:`two_loop_cuda` calls it
     with the dispatch's choice; the dispatch's own measurement calls it with
     each kernel in turn. ``group`` is the streaming kernel's k
-    (:func:`group_size`'s when None; the other kernels take none). Never
-    reads ``head``, ``count`` or ``rho`` back to the host; anything the
-    kernel does not take raises, a k the ring cannot take included.
+    (:func:`group_size`'s when None) and ``prefetch`` the blocked kernel's
+    distance in rows, >= 1 (:func:`prefetch_rows`'s when None); the other
+    kernels take neither. Never reads ``head``, ``count`` or ``rho`` back to
+    the host; anything the kernel does not take raises, a k the ring cannot
+    take included.
     """
     if impl not in _KIND:
         raise ValueError(f"unknown impl {impl!r}; expected one of {sorted(_KIND)}")
@@ -235,6 +283,7 @@ def launch(
                          f"1 <= m <= {_MAX_M}")
     pb = S.dtype.itemsize
     k = _group_of(impl, n_pad, m, pb, group)
+    d = _prefetch_of(impl, n_pad, pb, prefetch)
     if v.device.type != "cuda" or v.dtype != torch.float32:
         raise ValueError(f"v must be a float32 CUDA tensor, got {v.dtype} on {v.device}")
     if v.dim() != 1 or n > n_pad:
@@ -261,12 +310,12 @@ def launch(
         out = torch.empty(n_pad, dtype=v.dtype, device=v.device)
         partials = torch.empty(2 * _N_PARTIALS * grid, dtype=torch.float32, device=v.device)
         rc = lib.two_loop_launch(
-            _KIND[impl], pb, k, v_pad.data_ptr(), S.data_ptr(), Y.data_ptr(), rho.data_ptr(),
+            _KIND[impl], pb, k, d, v_pad.data_ptr(), S.data_ptr(), Y.data_ptr(), rho.data_ptr(),
             head.data_ptr(), count.data_ptr(), out.data_ptr(), partials.data_ptr(),
             n_pad, m, grid, slice_, smem, int(clamp_gamma), gamma_min, gamma_max,
             torch.cuda.current_stream().cuda_stream,
         )
-    _check(lib, rc, f"two_loop_launch({impl}, k={k})")
+    _check(lib, rc, f"two_loop_launch({impl}, k={k}, prefetch={d})")
     two_loop_cuda.LAUNCHES[impl] += 1
     return out[:n]
 

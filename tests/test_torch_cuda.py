@@ -1,6 +1,6 @@
 """The Hopper two-loop kernels (K1, K2, K3) against their plain torch version
 on the card; K2 at each of its group sizes also against the grouped algebra
-it computes (two_loop_grouped).
+it computes (two_loop_grouped), K3 at each of several L2 prefetch distances.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -52,15 +52,16 @@ def _ring_on_card(m, n, k, dev, pair_dtype=torch.float32, seed=0):
     return hist
 
 
-def _check_against_plain(hist, n, clamp, dev, impl=None):
+def _check_against_plain(hist, n, clamp, dev, impl=None, **launch_kw):
     """Bound: max|kernel - plain| <= 1e-4 * max|plain| (f32 arithmetic on the
     same ring, reduced in different orders); two calls are bitwise equal;
-    exactly two launches of the expected kernel and none of the other."""
+    exactly two launches of the expected kernel and none of the other.
+    ``launch_kw`` goes to ``launch`` with ``impl``."""
     m, n_pad = hist.S.shape
     want = impl or kernel_dispatch(n_pad, m, torch.float32, hist.S.dtype)[0]
     v = torch.tensor(np.random.default_rng(1).normal(size=n), dtype=torch.float32, device=dev)
     before = dict(two_loop_cuda.LAUNCHES)
-    call = two_loop_cuda if impl is None else functools.partial(launch, impl)
+    call = two_loop_cuda if impl is None else functools.partial(launch, impl, **launch_kw)
     r_k = call(v, hist, clamp_gamma=clamp)
     r_k2 = call(v, hist, clamp_gamma=clamp)
     torch.cuda.synchronize()
@@ -104,10 +105,49 @@ def test_blocked_kernel_forced(cuda, n, m, k, clamp, pair_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,clamp", [(20, False), (53, True)])
 def test_blocked_kernel_dispatched_at_two_million(cuda, k, clamp):
-    """The large-n path's ring: m=50, n=2,000,000, f32 pairs go to K3."""
+    """The large-n path's ring: m=50, n=2,000,000, f32 pairs go to K3 (and
+    so do bf16 pairs, which K2 would take only at k = 1)."""
     n = 2_000_000
     assert kernel_dispatch(n, 50, torch.float32)[0] == BLOCKED
+    assert kernel_dispatch(n, 50, torch.float32, torch.bfloat16)[0] == BLOCKED
     _check_against_plain(_ring_on_card(50, n, k, cuda), n, clamp, cuda)
+
+
+PREFETCH = pytest.mark.parametrize("prefetch", [1, 2, 3, 4, None],
+                                   ids=["d1", "d2", "d3", "d4", "d_dispatch"])
+
+
+@pytest.mark.cuda
+@PAIR_DTYPES
+@PREFETCH
+@pytest.mark.parametrize("n", [2100, 101770])
+@pytest.mark.parametrize("pushes,clamp", [(0, False), (1, True), (2, False), (6, True),
+                                          (9, False)])
+def test_blocked_prefetch_distances(cuda, n, pushes, clamp, prefetch, pair_dtype):
+    """K3 at prefetch distances 1-4 and at prefetch_rows's (None), on an
+    m=6 ring: counts 0, 1, 2, m and wrapped (m + 3 pushes). Both n give a
+    ragged last slice (3 and 100 blocks over 2,176 and 101,888 padded
+    entries); the distance runs past the end of the 4 count rows the call
+    reads at low counts, and prefetch_rows's (~1,900 and ~40 rows) always."""
+    _check_against_plain(_ring(6, n, pushes, cuda, pair_dtype), n, clamp, cuda, BLOCKED,
+                         prefetch=prefetch)
+
+
+@functools.lru_cache(maxsize=None)
+def _large_ring(pair_name):
+    """The large path's m=50, n=2M ring, wrapped (53 pushes), on the card."""
+    pair_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[pair_name]
+    return _ring_on_card(50, 2_000_000, 53, torch.device("cuda"), pair_dtype, seed=12)
+
+
+@pytest.mark.cuda
+@PREFETCH
+@pytest.mark.parametrize("pair_name,clamp", [("f32", False), ("bf16", True)])
+def test_blocked_prefetch_at_two_million(cuda, pair_name, clamp, prefetch):
+    """K3 on the large path's wrapped m=50, n=2M ring (ragged over the
+    card's grid) at each distance, f32 and bf16 pairs."""
+    _check_against_plain(_large_ring(pair_name), 2_000_000, clamp, cuda, BLOCKED,
+                         prefetch=prefetch)
 
 
 @pytest.mark.cuda

@@ -21,7 +21,8 @@ from lbfgs_ffnn_tpu.ops.pallas_two_loop import (
     _two_loop_pallas_blocked, pallas_dispatch, two_loop_pallas,
 )
 from lbfgs_ffnn_torch.ops.cuda_two_loop import (
-    BLOCKED, COOPERATIVE, STREAMING, group_size, kernel_dispatch, launch, two_loop_cuda,
+    BLOCKED, COOPERATIVE, STREAMING, group_size, kernel_dispatch, launch, prefetch_rows,
+    two_loop_cuda,
 )
 
 # the modules (their packages re-export a function of the same name)
@@ -188,7 +189,7 @@ def test_kernel_dispatch_reasons():
     (101888, 100, torch.bfloat16, STREAMING),   # MNIST m=100
     (1048576, 50, torch.float32, STREAMING),    # scripts/diag_two_loop_large.py, n = 1M
     (2_000_000, 50, torch.float32, BLOCKED),    # the large Rosenbrock path
-    (2_000_000, 50, torch.bfloat16, STREAMING),  # K2's slices of q + 2 bf16 pairs still fit
+    (2_000_000, 50, torch.bfloat16, BLOCKED),   # K2 fits only at k = 1, and K3 is faster
     (4_000_000, 50, torch.float32, BLOCKED),    # scripts/diag_two_loop_large.py, n = 4M
     (4_000_000, 50, torch.bfloat16, BLOCKED),
     (7_434_240, 50, torch.float32, BLOCKED),    # K3's capacity: q alone fills the grid
@@ -196,24 +197,29 @@ def test_kernel_dispatch_reasons():
 def test_kernel_dispatch_picks(n_pad, m, pair_dtype, want):
     """The port's size policy at the shapes its paths give it: bf16 pairs
     are taken, the resident kernel only where all m pairs fit, the blocked
-    one where not even two staged pairs fit beside q."""
+    one where not even two staged pairs fit beside q, and from n_pad = 2M
+    also where they fit only one pair at a time (k = 1)."""
     assert kernel_dispatch(n_pad, m, torch.float32, pair_dtype) == (want, "")
 
 
 @pytest.mark.parametrize("n_pad,m,pair_dtype,want", [
     (242816, 100, torch.float32, 4),     # deep net m=100: k = 8 needs 32 MB
     (242816, 100, torch.bfloat16, 8),
-    (2_000_000, 50, torch.bfloat16, 1),  # the large path's bf16 ring: K2 as it was
+    (2_000_000, 50, torch.bfloat16, 1),  # the large path's bf16 ring: K2 fits, K3 takes it
     (1024, 3, torch.float32, 2),         # k <= m
     (2_000_000, 50, torch.float32, None),  # not even two f32 pairs fit (K3's ring)
 ])
 def test_group_size(n_pad, m, pair_dtype, want):
     """The streaming kernel's group: the largest of 8, 4, 2, 1 pairs (at
     most m) whose two buffers fit beside q; none where its k = 1 does not,
-    which is where the dispatch gives the ring to K3."""
+    which is where the dispatch gives the ring to K3. The dispatch picks K2
+    only where it has a group; at k = 1 from n_pad = 2M it picks K3."""
     assert group_size(n_pad, m, pair_dtype.itemsize) == want
-    assert (want is not None) == (kernel_dispatch(n_pad, m, torch.float32, pair_dtype)[0]
-                                  in (COOPERATIVE, STREAMING))
+    impl = kernel_dispatch(n_pad, m, torch.float32, pair_dtype)[0]
+    if want is None or (want == 1 and n_pad >= 2_000_000):
+        assert impl == BLOCKED
+    else:
+        assert impl in (COOPERATIVE, STREAMING)
 
 
 @pytest.mark.parametrize("impl,m,n,group,why", [
@@ -228,6 +234,54 @@ def test_launch_refuses_a_group_the_ring_cannot_take(impl, m, n, group, why):
     hist = ttl.empty_history_state(m, n, torch.float32)
     with pytest.raises(ValueError, match=why):
         launch(impl, torch.zeros(n), hist, group=group)
+
+
+@pytest.mark.parametrize("n_pad,pair_dtype,want", [
+    (2_000_000, torch.float32, 1),    # the large path's ring: an 8 MB row overruns 4 MiB
+    (4_000_000, torch.float32, 1),
+    (2_000_000, torch.bfloat16, 1),   # 4,000,000 bytes: one row fits
+    (4_000_000, torch.bfloat16, 1),
+    (2_000_000 // 2, torch.bfloat16, 2),
+    (7_434_240, torch.float32, 1),    # K3's reach: a 29.7 MB row
+    (1024, torch.float32, 1024),      # tiny rows: the distance outruns any sequence
+    (8, torch.bfloat16, 262144),
+])
+def test_prefetch_rows(n_pad, pair_dtype, want):
+    """The blocked kernel's L2 prefetch distance: the most rows that fit
+    4 MiB, at least 1."""
+    assert prefetch_rows(n_pad, pair_dtype.itemsize) == want
+
+
+@pytest.mark.parametrize("impl,prefetch,why", [
+    (BLOCKED, 0, "must be >= 1"),
+    (BLOCKED, -2, "must be >= 1"),
+    (COOPERATIVE, 2, "takes no prefetch distance"),
+    (STREAMING, 1, "takes no prefetch distance"),
+])
+def test_launch_refuses_a_prefetch_distance(impl, prefetch, why):
+    """A distance the blocked kernel cannot run, or any distance for the
+    kernels that prefetch nothing, raises before anything is launched (here
+    before the device check: the tensors are on the CPU)."""
+    hist = ttl.empty_history_state(4, 1000, torch.float32)
+    before = dict(two_loop_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match=why):
+        launch(impl, torch.zeros(1000), hist, prefetch=prefetch)
+    assert two_loop_cuda.LAUNCHES == before
+
+
+def test_blocked_stage_study_finds_its_anchors():
+    """The K3 stage study builds its variants by replacing text of
+    csrc/two_loop.cu; each piece it replaces is there exactly once, and
+    without a card it refuses to run."""
+    from lbfgs_ffnn_torch import _build
+    from lbfgs_ffnn_torch.experiments import blocked_stage_study as study
+
+    src = (_build.CSRC / "two_loop.cu").read_text()
+    for old, _ in [(study.PREFETCH, None), *sum(study.VARIANTS.values(), [])]:
+        assert src.count(old) == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+            study.main([])
 
 
 def test_cuda_wrapper_on_cpu_is_plain():
