@@ -7,12 +7,14 @@
 Phases, each printing its lines (any failure raises and exits non-zero):
   1. device   - refuses to run without CUDA; torch, CUDA, nvcc and card
   2. build    - compiles lbfgs_ffnn_torch/csrc/two_loop.cu for sm_90a and
-                prints ptxas's report for every kernel (K2 at each group
-                size k) and both pair types
-  3. kernel   - the cooperative kernel (K1) against its plain torch version
-                on the m=10, n=101,770 f32 and bf16 rings: empty, partial,
-                full and wrapped, clamp on and off; error bounds, bitwise
-                repeatability
+                prints ptxas's report for every kernel (K1 and its
+                timestamped build, K2 at each group size k, K3) and both
+                pair types
+  3. kernel   - the cooperative kernel (K1, the compact form) against its
+                plain torch version on the m=10, n=101,770 f32 and bf16
+                rings: empty, partial, full and wrapped, clamp on and off;
+                error bounds, bitwise repeatability; also against the
+                compact form in plain torch (two_loop_compact)
   4. stream   - the streaming kernel (K2) the same way on the m=100,
                 n=242,762 (deep net) f32 and bf16 rings (counts 0, 37, 100
                 and wrapped), at every group size k the ring takes (1, 2, 4
@@ -31,7 +33,10 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 the plain version, timed at m in {10, 100} x n in
                 {101,770, 242,762} and m=50 x n in {1M, 2M, 4M}, x {f32, bf16},
                 each beside its bounds (history read once, and twice where
-                the ring outgrows the L2) and K3's us per stage
+                the ring outgrows the L2) and K3's us per stage; then K1's
+                phase split and launch gap on the m=10 MNIST rings
+                (lbfgs_ffnn_torch.experiments.resident_phase_study, in a
+                process of its own)
   7. solve    - 100 iterations of L-BFGS (m=10, Armijo, ls_max_iters=20) on
                 the 784-128-10 MLP at N=60,000, f32, through the kernel, then
                 through the plain two-loop; the loss must fall, K1 must run
@@ -104,6 +109,7 @@ F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 TIMED_CALLS = 200
 TIMED_CALLS_LARGE = 20  # per timing in the n = 1M, 2M and 4M rows
 L2_BYTES = 50e6            # H100 L2
+HEAD_START_CYCLES = 200_000  # a ~100 us spin kernel queued before each timed call
 K3_STAGE_US_BEFORE = 8.5   # K3's us per stage at m=50, n=2M f32 before its L2 prefetch (PERF.md)
 
 
@@ -141,13 +147,13 @@ KERNEL_NAMES = ("two_loop_resident_kernel", "two_loop_grouped_kernel", "two_loop
 
 
 def _kernel_label(name):
-    """What ptxas's mangled entry name is: two_loop_resident_kernel<T> is
-    K1, two_loop_grouped_kernel<T, K> K2 at k = K, two_loop_blocked_kernel<T>
-    K3."""
+    """What ptxas's mangled entry name is: two_loop_resident_kernel<T,
+    false> is K1 (true: its timestamped build), two_loop_grouped_kernel<T, K>
+    K2 at k = K, two_loop_blocked_kernel<T> K3."""
     if "two_loop_grouped_kernel" in name:
         kind = "streaming k=" + re.search(r"Li(\d+)E", name).group(1)
     elif "two_loop_resident_kernel" in name:
-        kind = "cooperative"
+        kind = "cooperative" + (" timestamped" if "Lb1E" in name else "")
     elif "two_loop_blocked_kernel" in name:
         kind = "blocked"
     else:
@@ -189,10 +195,11 @@ def _rings(torch, ttl, m, n, ks, pair_dtype, dev, seed):
 
 def _agreement(torch, ttl, kernels, phase, v, rings, m, n, pair_name):
     """Each ring, clamp off and on: every kernel of ``kernels`` ({label:
-    (fn, k)}; fn is two_loop_cuda, the dispatch's pick, or one kernel's
-    launch) against the plain f32 version on the same ring and the plain
-    f64 one; where k is not None (K2 at group size k) also against the
-    grouped algebra at k in plain f32 torch. Returns each label's largest
+    (fn, algebra)}; fn is two_loop_cuda, the dispatch's pick, or one
+    kernel's launch) against the plain f32 version on the same ring and the
+    plain f64 one; where algebra is not None, (its name, its function), also
+    against the algebra the kernel computes in plain f32 torch (K1's compact
+    form, K2's grouped form at its k). Returns each label's largest
     max|kernel - plain|."""
     worst = dict.fromkeys(kernels, 0.0)
     for pushes, hist in rings.items():
@@ -201,7 +208,7 @@ def _agreement(torch, ttl, kernels, phase, v, rings, m, n, pair_name):
             r_p = ttl.two_loop(v, hist, clamp_gamma=clamp)
             r_64 = ttl.two_loop(v.double(), h64, clamp_gamma=clamp)
             err_p = float((r_p.double() - r_64).abs().max())
-            for label, (kernel, k) in kernels.items():
+            for label, (kernel, algebra) in kernels.items():
                 r_k = kernel(v, hist, clamp_gamma=clamp)
                 r_k2 = kernel(v, hist, clamp_gamma=clamp)
                 torch.cuda.synchronize()
@@ -216,12 +223,13 @@ def _agreement(torch, ttl, kernels, phase, v, rings, m, n, pair_name):
                       f"{err_p:.3e}")
                 check(torch.equal(r_k, r_k2), f"{what}: two calls differ")
                 grouped = ""
-                if k is not None:
-                    r_g = ttl.two_loop_grouped(v, hist, k, clamp_gamma=clamp)
+                if algebra is not None:
+                    name, fn = algebra
+                    r_g = fn(v, hist, clamp_gamma=clamp)
                     rel_g = float((r_k - r_g).abs().max()) / float(r_g.abs().max())
                     check(rel_g <= KERNEL_REL_TOL,
-                          f"{what}: |kernel-grouped|/|grouped| = {rel_g:.3e}")
-                    grouped = (f"; vs grouped algebra at k={k}: rel {rel_g:.3e} "
+                          f"{what}: |kernel-{name}|/|{name}| = {rel_g:.3e}")
+                    grouped = (f"; vs {name}: rel {rel_g:.3e} "
                                f"(f64-referenced {float((r_g.double() - r_64).abs().max()):.3e})")
                 worst[label] = max(worst[label], diff)
                 say(phase, f"{what} (count={min(pushes, m)}, wrapped={pushes > m}): "
@@ -242,7 +250,8 @@ def kernel_phase(torch, n, dev):
         rings = _rings(torch, ttl, M, n, (0, 4, 10, 13), pd, dev, seed=1)
         impl = kernel_dispatch(rings[0].S.shape[1], M, torch.float32, pd)[0]
         check(impl == COOPERATIVE, f"m={M} n={n} {name}: dispatch picks {impl}, not K1")
-        worst = max(worst, _agreement(torch, ttl, {"": (two_loop_cuda, None)}, "kernel", v,
+        compact = ("compact form", ttl.two_loop_compact)
+        worst = max(worst, _agreement(torch, ttl, {"": (two_loop_cuda, compact)}, "kernel", v,
                                       rings, M, n, name)[""])
     return worst
 
@@ -275,10 +284,14 @@ def two_pass_ms(n, m, pair_bytes):
 def _time_cold_ms(torch, fn, flush, reps=TIMED_CALLS):
     """Mean device time of ``fn()`` over ``reps`` calls, CUDA events around
     each call, with the L2 flushed before it (as the solve leaves it: each
-    iteration streams the 188 MB input through the 50 MB L2)."""
+    iteration streams the 188 MB input through the 50 MB L2) and a spin
+    kernel queued after the flush, so that the host has queued the call
+    before the card reaches the start event: a call's host-side Python is
+    not in its time, even where it outlasts the flush."""
     events = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HEAD_START_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -333,7 +346,10 @@ def stream_phase(torch, dev):
         picked = group_size(n_pad, M_DEEP, pd.itemsize)
         say("stream", f"m={M_DEEP} n={n_deep} {name}: K2 takes k in {ks}; group_size picks "
             f"{picked}")
-        kernels = {f" K2 k={k}": (functools.partial(launch, STREAMING, group=k), k) for k in ks}
+        kernels = {f" K2 k={k}": (functools.partial(launch, STREAMING, group=k),
+                                  (f"grouped algebra at k={k}",
+                                   functools.partial(ttl.two_loop_grouped, k=k)))
+                   for k in ks}
         errs = _agreement(torch, ttl, kernels, "stream", v, rings, M_DEEP, n_deep, name)
         worst[name] = errs[f" K2 k={picked}"]
         del rings
@@ -445,6 +461,10 @@ def table_phase(torch, dev, profile: bool):
                                     for k, ts in times.items()) + device)
             del hist
     del flush
+    say("table", "K1's phase split and launch gap: python -m "
+        "lbfgs_ffnn_torch.experiments.resident_phase_study")
+    subprocess.run([sys.executable, "-m", "lbfgs_ffnn_torch.experiments.resident_phase_study"],
+                   check=True, timeout=600)
     return table
 
 

@@ -141,7 +141,7 @@ def main(argv=None) -> None:
                         fn = lambda d=d: ctl.launch(ctl.BLOCKED, v, hist, prefetch=d)
                         fn()
                         times.setdefault((label, d), []).append(cold_us(fn, flush, args.reps))
-            grid = ctl._config(ctl._lib(), dev.index or 0, ctl.BLOCKED, pd.itemsize, 1,
+            grid = ctl._config(ctl._lib(), dev.index or 0, ctl._KIND[ctl.BLOCKED], pd.itemsize, 1,
                                hist.S.shape[1], M)
             name = "f32" if pd == torch.float32 else "bf16"
             print(f"m={M} n={n} {name}, grid/slice/smem {grid}, wrapped ring, {args.reps} calls "

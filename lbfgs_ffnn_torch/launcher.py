@@ -61,7 +61,8 @@ class UnifiedConfig:
     """The fields of the JAX package's UnifiedConfig that the ported solvers
     read, with its names and defaults except ``two_loop_impl`` ("cuda": the
     Hopper kernels on CUDA tensors and the plain loop on CPU ones; "plain":
-    the plain loop everywhere), plus those that raise until ported."""
+    the plain loop everywhere; "compact": the plain compact form), plus
+    those that raise until ported."""
 
     name: str = "Experiment"
     max_iters: int = 100

@@ -3,13 +3,13 @@
 Counterpart of :mod:`lbfgs_ffnn_tpu.ops.pallas_two_loop`: the TPU kernels
 ``_kernel_resident``, ``_kernel`` and ``_kernel_blocked`` become the
 cooperative CUDA kernels ``cuda-cooperative`` (the history slices resident
-in shared memory), ``cuda-streaming`` (the rows streamed in groups of k
-pairs, one grid reduction per group; k from :func:`group_size`) and
-``cuda-blocked`` (only q in shared memory, the rows read from global memory
-in every sweep, each prefetched into L2 :func:`prefetch_rows` rows ahead)
-in ``csrc/two_loop.cu``, whose header says how each design maps to the
-card. :func:`kernel_dispatch`
-is the size policy of ``pallas_dispatch``; :func:`two_loop_cuda` has the
+in shared memory, the compact form with two grid reductions per call, rings
+of at most :data:`RESIDENT_MAX_M` pairs), ``cuda-streaming`` (the rows
+streamed in groups of k pairs, one grid reduction per group; k from
+:func:`group_size`) and ``cuda-blocked`` (only q in shared memory, the rows
+read from global memory in every sweep, each prefetched into L2
+:func:`prefetch_rows` rows ahead) in ``csrc/two_loop.cu``, whose header says
+how each design maps to the card. :func:`kernel_dispatch` is the size policy of ``pallas_dispatch``; :func:`two_loop_cuda` has the
 signature of :func:`lbfgs_ffnn_torch.ops.two_loop.two_loop`. For a CPU
 tensor it calls that plain version; for a CUDA tensor it launches the kernel
 the dispatch names (through :func:`launch`) or raises.
@@ -26,9 +26,14 @@ from lbfgs_ffnn_torch.ops.two_loop import RingState, two_loop
 
 COOPERATIVE, STREAMING, BLOCKED = "cuda-cooperative", "cuda-streaming", "cuda-blocked"
 _KIND = {COOPERATIVE: 0, STREAMING: 1, BLOCKED: 2}  # Kind in the source
+_RESIDENT_STAMPED = 3  # kResidentStamped: K1 with its phase timestamps
+N_STAMPS = 9  # kStamps: K1's phase boundaries, each as (ns, cycles)
 _PAIR_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_M = 1024  # alphas live in shared memory (kMaxM in the source)
-_N_PARTIALS = 38  # kNumPartials in the source: K2's first group at k = 8
+# The resident kernel's cap on m (kResidentMaxM): its first grid reduction
+# carries m(m+1)/2 + 2 values, one thread summing each, 138 at 16.
+RESIDENT_MAX_M = 16
+_N_PARTIALS = RESIDENT_MAX_M * (RESIDENT_MAX_M + 1) // 2 + 2  # kNumPartials: the widest reduction
 GROUP_SIZES = (8, 4, 2, 1)  # K2's k (two_loop_grouped_kernel<T, K>), largest first
 
 # Shared memory a one-block-per-SM grid can hold on an H100 SXM (132 SMs,
@@ -136,13 +141,16 @@ def kernel_dispatch(n_pad: int, m: int, dtype, pair_dtype=None) -> tuple[str, st
     ``pair_dtype`` (defaults to ``dtype``).
 
     Returns ``(impl, reason)``: ``("cuda-cooperative", "")`` wherever its
-    slices of the whole ring fit shared memory, else ``("cuda-streaming",
-    "")`` where the streaming kernel's fit, else ``("cuda-blocked", "")``
-    where q alone fits (n_pad up to ~7.4M), else ``("unsupported",
-    reason)``; the wrapper then raises with the reason instead of
-    substituting another path. The order is measured: where two kernels
-    take a ring, the one listed first was the faster on an H100
-    (chip_smoke.py phase "table", table in PERF.md). One exception, also
+    slices of the whole ring fit shared memory and m is at most
+    :data:`RESIDENT_MAX_M`, else ``("cuda-streaming", reason)`` where the
+    streaming kernel's fit, else ``("cuda-blocked", reason)`` where q alone
+    fits (n_pad up to ~7.4M), else ``("unsupported", reason)``; the wrapper
+    then raises with the reason instead of substituting another path. The
+    reason of a streaming or blocked pick is empty, or names the cap where
+    only the cap kept the ring from the resident kernel. The order is
+    measured: where two kernels take a ring, the one listed first was the
+    faster on an H100 (chip_smoke.py phase "table", table in PERF.md); K1
+    was the fastest on every m = 10 row. One exception, also
     measured: a ring the streaming kernel takes only in groups of k = 1
     goes to the blocked kernel from n_pad = 2,000,000 on (the large path's
     bf16 ring), where one pair per grid reduction streamed through shared
@@ -159,13 +167,16 @@ def kernel_dispatch(n_pad: int, m: int, dtype, pair_dtype=None) -> tuple[str, st
     if not 1 <= m <= _MAX_M:
         return "unsupported", f"history size m={m} outside [1, {_MAX_M}]"
     pb = pd.itemsize
+    why = ""
     if fits(COOPERATIVE, n_pad, m, pb):
-        return COOPERATIVE, ""
+        if m <= RESIDENT_MAX_M:
+            return COOPERATIVE, ""
+        why = f"m={m} is above the resident kernel's cap of {RESIDENT_MAX_M} pairs"
     if fits(STREAMING, n_pad, m, pb) and (group_size(n_pad, m, pb) > 1
                                           or n_pad < _K3_OVER_K2_AT_K1):
-        return STREAMING, ""
+        return STREAMING, why
     if fits(BLOCKED, n_pad, m, pb):
-        return BLOCKED, ""
+        return BLOCKED, why
     return "unsupported", (
         f"padded row length {n_pad}: even the blocked kernel's slices of q alone need "
         f"{4 * n_pad} bytes, more than the {_GRID_SMEM_BYTES} bytes of shared memory of "
@@ -181,8 +192,9 @@ def _lib() -> ctypes.CDLL:
         lib.two_loop_config.argtypes = [i, i, i, i, i, ip, ip, ip]
         lib.two_loop_config.restype = i
         # (kind, pair bytes, group, prefetch, ...): prefetch is K3's distance, 0 for K1, K2
-        lib.two_loop_launch.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                        ctypes.c_float, ctypes.c_float, p]
+        # (..., n_pad, n, ..., stream, stamps): stamps only for K1's timestamped build
+        lib.two_loop_launch.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                        ctypes.c_float, ctypes.c_float, p, p]
         lib.two_loop_launch.restype = i
         lib.two_loop_error_string.argtypes = [i]
         lib.two_loop_error_string.restype = ctypes.c_char_p
@@ -199,17 +211,17 @@ def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 _CONFIGS: dict[tuple, tuple[int, int, int]] = {}
 
 
-def _config(lib: ctypes.CDLL, device_index: int, impl: str, pair_bytes: int, group: int,
+def _config(lib: ctypes.CDLL, device_index: int, kind: int, pair_bytes: int, group: int,
             n_pad: int, m: int) -> tuple[int, int, int]:
-    """(grid, elements per block, dynamic shared bytes), queried once per
-    device, kernel, group size and shape."""
-    key = (device_index, impl, pair_bytes, group, n_pad, m)
+    """(grid, elements per block, dynamic shared bytes) of the source's Kind
+    ``kind``, queried once per device, kernel, group size and shape."""
+    key = (device_index, kind, pair_bytes, group, n_pad, m)
     if key not in _CONFIGS:
         grid, slice_, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        _check(lib, lib.two_loop_config(_KIND[impl], pair_bytes, group, n_pad, m,
+        _check(lib, lib.two_loop_config(kind, pair_bytes, group, n_pad, m,
                                         ctypes.byref(grid), ctypes.byref(slice_),
                                         ctypes.byref(smem)),
-               f"two_loop_config({impl}, k={group}, n_pad={n_pad}, m={m}, "
+               f"two_loop_config(kind {kind}, k={group}, n_pad={n_pad}, m={m}, "
                f"pair bytes {pair_bytes})")
         _CONFIGS[key] = (grid.value, slice_.value, smem.value)
     return _CONFIGS[key]
@@ -256,6 +268,7 @@ def launch(
     *,
     group: int | None = None,
     prefetch: int | None = None,
+    stamps: torch.Tensor | None = None,
     clamp_gamma: bool = False,
     gamma_min: float = 1e-6,
     gamma_max: float = 1e6,
@@ -267,9 +280,13 @@ def launch(
     each kernel in turn. ``group`` is the streaming kernel's k
     (:func:`group_size`'s when None) and ``prefetch`` the blocked kernel's
     distance in rows, >= 1 (:func:`prefetch_rows`'s when None); the other
-    kernels take neither. Never reads ``head``, ``count`` or ``rho`` back to
-    the host; anything the kernel does not take raises, a k the ring cannot
-    take included.
+    kernels take neither. The resident kernel takes rings of at most
+    :data:`RESIDENT_MAX_M` pairs. ``stamps``, an int64 CUDA tensor of
+    ``2 * N_STAMPS`` entries, launches the resident kernel's timestamped
+    build instead, which writes block 0's phase boundaries there as (ns,
+    cycles) pairs (a study's instrument, not counted in ``LAUNCHES``).
+    Never reads ``head``, ``count`` or ``rho`` back to the host; anything
+    the kernel does not take raises, a k the ring cannot take included.
     """
     if impl not in _KIND:
         raise ValueError(f"unknown impl {impl!r}; expected one of {sorted(_KIND)}")
@@ -281,6 +298,13 @@ def launch(
     if n_pad % 8 or not 1 <= m <= _MAX_M:
         raise ValueError(f"ring of m={m} rows of {n_pad}: need n_pad % 8 == 0 and "
                          f"1 <= m <= {_MAX_M}")
+    if impl == COOPERATIVE and m > RESIDENT_MAX_M:
+        raise ValueError(f"the resident kernel takes rings of at most {RESIDENT_MAX_M} pairs "
+                         f"(its cap, kResidentMaxM), got m={m}")
+    if stamps is not None and (impl != COOPERATIVE or stamps.dtype != torch.int64
+                               or stamps.shape != (2 * N_STAMPS,) or stamps.device != v.device):
+        raise ValueError(f"stamps go with {COOPERATIVE} as an int64 tensor of {2 * N_STAMPS} "
+                         "entries on v's device")
     pb = S.dtype.itemsize
     k = _group_of(impl, n_pad, m, pb, group)
     d = _prefetch_of(impl, n_pad, pb, prefetch)
@@ -304,19 +328,24 @@ def launch(
         raise ValueError("ring S and Y must start on a 16-byte boundary")
 
     lib = _lib()
+    kind = _KIND[impl] if stamps is None else _RESIDENT_STAMPED
     with torch.cuda.device(v.device):
-        grid, slice_, smem = _config(lib, v.device.index, impl, pb, k, n_pad, m)
-        v_pad = torch.nn.functional.pad(v, (0, n_pad - n))  # a fresh, aligned copy
+        grid, slice_, smem = _config(lib, v.device.index, kind, pb, k, n_pad, m)
+        # the kernels read v's n entries in place (zero beyond), 16 bytes at a time
+        v_in = (v if v.is_contiguous() and _aligned(v)
+                else v.clone(memory_format=torch.contiguous_format))
         out = torch.empty(n_pad, dtype=v.dtype, device=v.device)
         partials = torch.empty(2 * _N_PARTIALS * grid, dtype=torch.float32, device=v.device)
         rc = lib.two_loop_launch(
-            _KIND[impl], pb, k, d, v_pad.data_ptr(), S.data_ptr(), Y.data_ptr(), rho.data_ptr(),
+            kind, pb, k, d, v_in.data_ptr(), S.data_ptr(), Y.data_ptr(), rho.data_ptr(),
             head.data_ptr(), count.data_ptr(), out.data_ptr(), partials.data_ptr(),
-            n_pad, m, grid, slice_, smem, int(clamp_gamma), gamma_min, gamma_max,
+            n_pad, n, m, grid, slice_, smem, int(clamp_gamma), gamma_min, gamma_max,
             torch.cuda.current_stream().cuda_stream,
+            None if stamps is None else stamps.data_ptr(),
         )
-    _check(lib, rc, f"two_loop_launch({impl}, k={k}, prefetch={d})")
-    two_loop_cuda.LAUNCHES[impl] += 1
+    _check(lib, rc, f"two_loop_launch({impl}, k={k}, prefetch={d}, stamps={stamps is not None})")
+    if stamps is None:
+        two_loop_cuda.LAUNCHES[impl] += 1
     return out[:n]
 
 

@@ -13,6 +13,8 @@ both widths).
 
 :func:`two_loop` is the plain version: the path for CPU tensors and the
 oracle for the Hopper kernels in :mod:`lbfgs_ffnn_torch.ops.cuda_two_loop`.
+:func:`two_loop_grouped` and :func:`two_loop_compact` are the algebra of the
+streaming and the resident kernel in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -131,16 +133,9 @@ def two_loop(
         q = q - a * Yb[k]
         alphas.append(a)
 
-    ys = torch.dot(Sb[0], Yb[0])
-    yy = torch.dot(Yb[0], Yb[0])
-    one = torch.ones_like(ys)
-    safe_yy = torch.where(yy == 0, one, yy)
-    if clamp_gamma:
-        gamma = torch.where(torch.abs(yy) < 1e-12, one, ys / safe_yy)
-        gamma = torch.clamp(gamma, gamma_min, gamma_max)
-    else:
-        gamma = torch.where(yy > 0, ys / safe_yy, one)
-    gamma = torch.where(c > 0, gamma, one)
+    gamma = _gamma(torch.dot(Sb[0], Yb[0]), torch.dot(Yb[0], Yb[0]), clamp_gamma, gamma_min,
+                   gamma_max)
+    gamma = torch.where(c > 0, gamma, torch.ones_like(gamma))
 
     # Forward pass: oldest -> newest.
     z = gamma * q
@@ -189,15 +184,8 @@ def two_loop_grouped(
     Yb = Y.index_select(0, phys).to(v.dtype)
     rb = rho.index_select(0, phys)
 
-    ys = torch.dot(Sb[0], Yb[0])
-    yy = torch.dot(Yb[0], Yb[0])
-    one = torch.ones_like(ys)
-    safe_yy = torch.where(yy == 0, one, yy)
-    if clamp_gamma:
-        gamma = torch.where(torch.abs(yy) < 1e-12, one, ys / safe_yy)
-        gamma = torch.clamp(gamma, gamma_min, gamma_max)
-    else:
-        gamma = torch.where(yy > 0, ys / safe_yy, one)
+    gamma = _gamma(torch.dot(Sb[0], Yb[0]), torch.dot(Yb[0], Yb[0]), clamp_gamma, gamma_min,
+                   gamma_max)
 
     alphas = [None] * c
     for g0 in range(0, c, k):  # backward, newest first
@@ -225,3 +213,76 @@ def two_loop_grouped(
         for coef, j in zip(coefs, grp):
             z = z + coef * Sb[j]
     return z[:n]
+
+
+def _gamma(ys, yy, clamp_gamma: bool, gamma_min: float, gamma_max: float):
+    """The initial scaling from the newest pair's s.y and y.y."""
+    one = torch.ones_like(ys)
+    safe_yy = torch.where(yy == 0, one, yy)
+    if clamp_gamma:
+        gamma = torch.where(torch.abs(yy) < 1e-12, one, ys / safe_yy)
+        return torch.clamp(gamma, gamma_min, gamma_max)
+    return torch.where(yy > 0, ys / safe_yy, one)
+
+
+def two_loop_compact(
+    v: torch.Tensor,
+    hist: RingState,
+    *,
+    clamp_gamma: bool = False,
+    gamma_min: float = 1e-6,
+    gamma_max: float = 1e6,
+) -> torch.Tensor:
+    """:func:`two_loop` in the compact form: the JAX package's
+    ``two_loop_compact`` with its scalar core ``_compact_recurrences``, and
+    the algebra of the resident kernel (``cuda-cooperative``).
+
+    In logical order l (oldest first; physical slot ``(head - count + l) %
+    m``) the recursion collapses to products over the whole ring and two
+    scalar recurrences of length m:
+
+        c_l = s_l.v ;  M_lj = s_l.y_j
+        a_l = rho_l (c_l - sum_{j>l} M_lj a_j)            (newest first)
+        z0  = gamma (v - sum_l a_l y_l) ;  d_l = y_l.z0
+        b_l = rho_l (d_l + sum_{j<l} M_jl (a_j - b_j))    (oldest first)
+        r   = z0 + sum_l (a_l - b_l) s_l
+
+    gamma takes the newest pair's s.y from ``M`` and its y.y from one more
+    dot, by :func:`two_loop`'s rules. Slots past ``count`` carry zero
+    coefficients, so nothing is read on the host; ``count = 0`` returns
+    ``v``. Narrow rows are upcast to ``v``'s dtype before any product.
+    """
+    S, Y, rho, head, count = hist
+    m, n_pad = S.shape
+    n = v.shape[0]
+    c = count.long()
+    li = torch.arange(m, device=S.device)
+    phys = (head.long() - c + li) % m
+    valid = li < c
+    Sl = S.index_select(0, phys).to(v.dtype)
+    Yl = Y.index_select(0, phys).to(v.dtype)
+    rhol = torch.where(valid, rho.index_select(0, phys), torch.zeros_like(rho))
+    v1 = _pad_to(v, n_pad)
+    # The n-long dots as sums of products, summed as torch.dot sums (on the
+    # CPU a GEMM accumulates f32 along the row: 2.02x the loop's error on an
+    # m=10 MLP ring, against 1.2x this way).
+    cv = (Sl * v1).sum(dim=1)
+    M = torch.stack([(Yl * Sl[l]).sum(dim=1) for l in range(m)])  # M[l, j] = s_l . y_j
+
+    last = torch.clamp(c - 1, min=0)
+    y_last = Yl.index_select(0, last.view(1))[0]
+    gamma = _gamma(M[last, last], torch.dot(y_last, y_last), clamp_gamma, gamma_min, gamma_max)
+    gamma = torch.where(c > 0, gamma, torch.ones_like(gamma))
+
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    a = torch.zeros(m, dtype=v.dtype, device=v.device)
+    for l in reversed(range(m)):  # backward, newest first
+        acc = torch.sum(torch.where((li > l) & valid, M[l] * a, zero))
+        a = torch.where(li == l, torch.where(valid[l], rhol[l] * (cv[l] - acc), zero), a)
+    z0 = gamma * (v1 - a @ Yl)
+    d = (Yl * z0).sum(dim=1)
+    b = torch.zeros(m, dtype=v.dtype, device=v.device)
+    for l in range(m):  # forward, oldest first
+        acc = torch.sum(torch.where((li < l) & valid, M[:, l] * (a - b), zero))
+        b = torch.where(li == l, torch.where(valid[l], rhol[l] * (d[l] + acc), zero), b)
+    return (z0 + (a - b) @ Sl)[:n]

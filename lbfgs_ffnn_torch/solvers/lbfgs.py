@@ -26,8 +26,8 @@ solver-dtype pair before the push narrows it, and the recursion runs in the
 solver dtype.
 
 Not ported yet (each raises ``NotImplementedError``): the batched Armijo
-search, ``ls_alpha_init="warm"``, HVP curvature pairs, the compact and
-sharded two-loops, pair dtypes other than bfloat16, ``prefix_dtype`` with
+search, ``ls_alpha_init="warm"``, HVP curvature pairs, the sharded
+two-loops, pair dtypes other than bfloat16, ``prefix_dtype`` with
 ``prefix_refresh``, ``mesh``. ``lbfgs_chunked`` is not ported yet either.
 """
 
@@ -40,7 +40,7 @@ import torch
 from lbfgs_ffnn_torch.ops.cuda_two_loop import two_loop_cuda
 from lbfgs_ffnn_torch.ops.linesearch import armijo_quad_line_search, wolfe_line_search
 from lbfgs_ffnn_torch.ops.two_loop import (
-    RingState, empty_history_state, ring_push, ring_reset, two_loop,
+    RingState, empty_history_state, ring_push, ring_reset, two_loop, two_loop_compact,
 )
 from lbfgs_ffnn_torch.solvers.common import finalize, full_f32, init_history, record
 from lbfgs_ffnn_torch.types import Problem, SolveResult, prepared_aux
@@ -49,8 +49,9 @@ from lbfgs_ffnn_torch.types import Problem, SolveResult, prepared_aux
 class LBFGSOptions(NamedTuple):
     """The JAX package's options that the ported branch reads, with the same
     names and defaults except ``two_loop_impl``: "cuda" (the default; the
-    Hopper kernel on CUDA tensors, the plain loop on CPU tensors) or "plain"
-    (the torch loop everywhere, the kernel's reference)."""
+    Hopper kernel on CUDA tensors, the plain loop on CPU tensors), "plain"
+    (the torch loop everywhere, the kernel's reference) or "compact" (JAX's
+    single-device compact form in plain torch, everywhere)."""
 
     max_iters: int = 1000
     tol: float = 1e-10
@@ -77,7 +78,7 @@ def _check_options(opts: LBFGSOptions) -> None:
         "line_search": (opts.line_search, ("wolfe", "armijo"), ("armijo_batched",)),
         "curvature_pairs": (opts.curvature_pairs, ("grad_diff",), ("hvp",)),
         "ls_alpha_init": (opts.ls_alpha_init, ("fixed",), ("warm",)),
-        "two_loop_impl": (opts.two_loop_impl, ("plain", "cuda"), ("xla", "pallas", "compact")),
+        "two_loop_impl": (opts.two_loop_impl, ("plain", "cuda", "compact"), ("xla", "pallas")),
     }
     for name, (val, ported, later) in choices.items():
         if val in later:
@@ -159,7 +160,8 @@ def _not_done(s: _State, opts: LBFGSOptions) -> bool:
 
 def _make_body(problem: Problem, opts: LBFGSOptions):
     _check_options(opts)
-    two_loop_fn = two_loop_cuda if opts.two_loop_impl == "cuda" else two_loop
+    two_loop_fn = {"cuda": two_loop_cuda, "compact": two_loop_compact}.get(opts.two_loop_impl,
+                                                                          two_loop)
     lean = _lean(problem, opts)
     use_prefix = _use_prefix(problem, opts)
     # The armijo accept evaluation already computes the post-step prefix

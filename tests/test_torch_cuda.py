@@ -1,6 +1,8 @@
 """The Hopper two-loop kernels (K1, K2, K3) against their plain torch version
-on the card; K2 at each of its group sizes also against the grouped algebra
-it computes (two_loop_grouped), K3 at each of several L2 prefetch distances.
+on the card; K1 also against the compact form it computes
+(two_loop_compact), K2 at each of its group sizes also against the grouped
+algebra it computes (two_loop_grouped), K3 at each of several L2 prefetch
+distances.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -13,10 +15,11 @@ import pytest
 import torch
 
 from lbfgs_ffnn_torch.ops.cuda_two_loop import (
-    BLOCKED, COOPERATIVE, STREAMING, group_size, kernel_dispatch, launch, two_loop_cuda,
+    BLOCKED, COOPERATIVE, N_STAMPS, RESIDENT_MAX_M, STREAMING, group_size, kernel_dispatch,
+    launch, two_loop_cuda,
 )
 from lbfgs_ffnn_torch.ops.two_loop import (
-    empty_history_state, ring_push, two_loop, two_loop_grouped,
+    empty_history_state, ring_push, two_loop, two_loop_compact, two_loop_grouped,
 )
 
 PAIR_DTYPES = pytest.mark.parametrize("pair_dtype", [torch.float32, torch.bfloat16],
@@ -164,8 +167,10 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         two_loop_cuda(v, _ring(5, 300, 2, cuda, torch.float16))
     with pytest.raises(ValueError):
         launch("cuda-nonesuch", v, hist)
-    with pytest.raises(RuntimeError):  # the resident slices of m=100 do not fit
+    with pytest.raises(ValueError, match="cap"):  # m=100 is above the resident kernel's cap
         launch(COOPERATIVE, torch.ones(242762, device=cuda), _ring(100, 242762, 1, cuda))
+    with pytest.raises(RuntimeError):  # the resident slices of m=16 at n = 1M do not fit
+        launch(COOPERATIVE, torch.ones(1_000_000, device=cuda), _ring(16, 1_000_000, 1, cuda))
     with pytest.raises(ValueError, match="blocked kernel"):  # above K3's capacity
         two_loop_cuda(torch.ones(7_434_248, device=cuda), _ring_on_card(1, 7_434_248, 0, cuda))
 
@@ -217,3 +222,101 @@ def test_streaming_group_sizes_of_the_deep_rings(cuda):
     with pytest.raises(ValueError, match="groups of k=8"):
         launch(STREAMING, v, _deep_ring(3, "f32"), group=8)
     assert two_loop_cuda.LAUNCHES == before
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_ring(m, pushes, n, pair_name):
+    pair_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[pair_name]
+    return _ring(m, n, pushes, torch.device("cuda"), pair_dtype, seed=13)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair_name", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [257, 3000, 101770])
+@pytest.mark.parametrize("m", [1, 5, 10, RESIDENT_MAX_M])
+@pytest.mark.parametrize("pushes", ["0", "1", "2", "m", "wrapped"])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_resident_kernel_compact_form(cuda, pushes, m, n, pair_name, clamp):
+    """K1 on counts 0, 1, 2, m and a wrapped ring (m + 3 pushes), m from 1
+    to the cap, ragged grids (n = 257 and 3000 give one and three blocks)
+    and the MNIST ring: against the plain loop and the plain compact form
+    (1e-4 of max|r|: f32 on the card, reduced in other orders), bitwise
+    equal over two calls, one launch each; count 0 returns v bit for bit."""
+    k = {"0": 0, "1": 1, "2": 2, "m": m, "wrapped": m + 3}[pushes]
+    hist = _resident_ring(m, k, n, pair_name)
+    assert kernel_dispatch(hist.S.shape[1], m, torch.float32, hist.S.dtype)[0] == COOPERATIVE
+    v = torch.tensor(np.random.default_rng(2).normal(size=n), dtype=torch.float32, device=cuda)
+    before = dict(two_loop_cuda.LAUNCHES)
+    r_k = two_loop_cuda(v, hist, clamp_gamma=clamp)
+    r_k2 = two_loop_cuda(v, hist, clamp_gamma=clamp)
+    torch.cuda.synchronize()
+    assert two_loop_cuda.LAUNCHES == {i: c + 2 * (i == COOPERATIVE) for i, c in before.items()}
+    assert r_k.shape == (n,) and torch.equal(r_k, r_k2)
+    if k == 0:
+        assert torch.equal(r_k, v)
+    for ref in (two_loop(v, hist, clamp_gamma=clamp),
+                two_loop_compact(v, hist, clamp_gamma=clamp)):
+        assert float((r_k - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_resident_kernel_head_ahead_of_count(cuda):
+    """A ring whose count is below m with head != count (as after pushes,
+    a reset and new pushes into a ring the caller rearranged): K1 reads the
+    logical order from head and count on the device."""
+    hist = _ring(10, 3000, 13, cuda)
+    hist = hist._replace(count=torch.tensor(6, dtype=torch.int32, device=cuda))
+    v = torch.tensor(np.random.default_rng(3).normal(size=3000), dtype=torch.float32, device=cuda)
+    r_k = two_loop_cuda(v, hist)
+    ref = two_loop(v, hist)
+    assert int(hist.head) != 6
+    assert float((r_k - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_resident_kernel_refuses_above_its_cap(cuda):
+    """m = cap + 1: the dispatch sends the ring to K2 with the cap as its
+    reason, and a launch of K1 by name raises naming the cap."""
+    m = RESIDENT_MAX_M + 1
+    hist = _ring(m, 3000, 2, cuda)
+    impl, reason = kernel_dispatch(hist.S.shape[1], m, torch.float32)
+    assert impl == STREAMING and f"cap of {RESIDENT_MAX_M}" in reason
+    before = dict(two_loop_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match=f"at most {RESIDENT_MAX_M} pairs"):
+        launch(COOPERATIVE, torch.ones(3000, device=cuda), hist)
+    assert two_loop_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair_name", ["f32", "bf16"])
+def test_resident_stamped_build_agrees(cuda, pair_name):
+    """K1's timestamped build (the phase study's) computes the same r as the
+    launched one, bitwise, and writes rising stamps; it is not counted."""
+    hist = _resident_ring(10, 13, 101770, pair_name)
+    v = torch.tensor(np.random.default_rng(4).normal(size=101770), dtype=torch.float32,
+                     device=cuda)
+    stamps = torch.zeros(2 * N_STAMPS, dtype=torch.int64, device=cuda)
+    before = dict(two_loop_cuda.LAUNCHES)
+    r_s = launch(COOPERATIVE, v, hist, stamps=stamps)
+    torch.cuda.synchronize()
+    assert two_loop_cuda.LAUNCHES == before
+    assert torch.equal(r_s, launch(COOPERATIVE, v, hist))
+    ns = stamps.view(N_STAMPS, 2)[:, 0].cpu()
+    assert bool((ns[1:] >= ns[:-1]).all()) and int(ns[-1]) > int(ns[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", [COOPERATIVE, STREAMING, BLOCKED])
+def test_kernels_read_v_in_place(cuda, impl):
+    """The kernels read v's n entries in place, zero beyond (the wrapper
+    pads nothing): an n that is no multiple of 4, a v that starts 4 bytes
+    off a 16-byte boundary and a strided v give the plain loop's r."""
+    n = 3001
+    hist = _ring(10, n, 13, cuda)
+    base = torch.tensor(np.random.default_rng(5).normal(size=2 * n + 2), dtype=torch.float32,
+                        device=cuda)
+    for v in (base[:n], base[1:n + 1], base[::2][:n]):
+        r_k = launch(impl, v, hist)
+        ref = two_loop(v.contiguous(), hist)
+        assert r_k.shape == (n,)
+        assert float((r_k - ref).abs().max()) <= 1e-4 * float(ref.abs().max())

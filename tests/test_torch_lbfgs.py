@@ -165,7 +165,7 @@ def test_stops_on_tol_and_pads_history():
 
 @pytest.mark.parametrize("kw", [
     {"line_search": "wolfe", "ls_alpha_init": "warm"}, {"line_search": "armijo_batched"},
-    {"ls_alpha_init": "warm"}, {"curvature_pairs": "hvp"}, {"two_loop_impl": "compact"},
+    {"ls_alpha_init": "warm"}, {"curvature_pairs": "hvp"}, {"two_loop_impl": "pallas"},
     {"pair_dtype": "float16"}, {"prefix_dtype": "bfloat16"}, {"prefix_refresh": 16},
 ])
 def test_unported_options_raise(kw):
@@ -174,6 +174,47 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         lbfgs(tmlp.mlp_problem(ts), torch.tensor(w0), aux=(torch.tensor(x), torch.tensor(y)),
               opts=opts)
+
+
+@pytest.mark.parametrize("spec_name", sorted(SPECS))
+def test_compact_trajectory_matches_jax_mlp(spec_name):
+    """two_loop_impl="compact" in both packages (each its single-device
+    compact form) on the f64 MLPs under Armijo: equal counters, the
+    trajectory to the rtols of test_trajectory_matches_jax."""
+    js, ts, w0, x, y = _problem(spec_name)
+    kw = dict(max_iters=ITERS, tol=1e-12, m=5, line_search="armijo", ls_max_iters=20,
+              two_loop_impl="compact")
+    rj = j_lbfgs(jmlp.mlp_problem(js), jnp.asarray(w0), aux=(jnp.asarray(x), jnp.asarray(y)),
+                 opts=JOptions(**kw))
+    rt = lbfgs(tmlp.mlp_problem(ts), tmlp.params_from_numpy(ts, w0, dtype=torch.float64),
+               aux=(torch.tensor(x), torch.tensor(y)), opts=LBFGSOptions(**kw))
+    assert rt.n_iters == int(rj.n_iters) == ITERS
+    _assert_same_trajectory(rt, rj)
+    np.testing.assert_allclose(rt.gnorm_history.numpy(), np.asarray(rj.gnorm_history), rtol=1e-9)
+
+
+def test_compact_trajectory_matches_jax_rosenbrock_wolfe():
+    """two_loop_impl="compact" under the Wolfe search on the f64 extended
+    Rosenbrock (n = 6, m = 5, 20 iterations: the ring fills and wraps):
+    equal counters and trajectory in both packages."""
+    from lbfgs_ffnn_tpu.objectives import analytic as ja
+    from lbfgs_ffnn_torch.objectives import analytic as ta
+
+    kw = dict(max_iters=20, tol=1e-12, m=5, line_search="wolfe", two_loop_impl="compact")
+    rj = j_lbfgs(ja.rosenbrock_problem(), ja.rosenbrock_start(6), opts=JOptions(**kw))
+    rt = lbfgs(ta.rosenbrock_problem(), ta.rosenbrock_start(6), opts=LBFGSOptions(**kw))
+    assert rt.n_iters == int(rj.n_iters) == 20
+    _assert_same_trajectory(rt, rj)
+
+
+def test_compact_option_follows_the_loop_form():
+    """The compact form is the recursion: the port's f64 MLP solve with
+    "compact" keeps the counters and trajectory of its solve with "plain"."""
+    _, a = _solve_both("deep", 20, impl="plain")
+    _, b = _solve_both("deep", 20, impl="compact")
+    assert (a.n_fevals, a.n_gevals) == (b.n_fevals, b.n_gevals)
+    np.testing.assert_allclose(b.loss_history.numpy(), a.loss_history.numpy(), rtol=1e-9)
+    np.testing.assert_allclose(b.x.numpy(), a.x.numpy(), rtol=1e-8, atol=1e-10)
 
 
 def test_mesh_not_ported():

@@ -3,9 +3,11 @@ torch recursion against the JAX loop form (f64) and the Pallas kernels
 (f32, interpret mode: the streaming and the rows-blocked one) and a dense
 inverse-Hessian oracle; the grouped algebra of the streaming Hopper kernel
 (two_loop_grouped) against the same references and against the f64
-recursion in f32; the Hopper dispatch's picks and reasons, and the
-streaming kernel's group sizes. The Hopper kernels' own tests, which need
-the card, are in tests/test_torch_cuda.py."""
+recursion in f32; the compact form of the resident Hopper kernel
+(two_loop_compact) against JAX's two_loop_compact and the f64 recursion in
+f32; the Hopper dispatch's picks and reasons, the resident kernel's cap and
+the streaming kernel's group sizes. The Hopper kernels' own tests, which
+need the card, are in tests/test_torch_cuda.py."""
 
 import functools
 import sys
@@ -21,8 +23,8 @@ from lbfgs_ffnn_tpu.ops.pallas_two_loop import (
     _two_loop_pallas_blocked, pallas_dispatch, two_loop_pallas,
 )
 from lbfgs_ffnn_torch.ops.cuda_two_loop import (
-    BLOCKED, COOPERATIVE, STREAMING, group_size, kernel_dispatch, launch, prefetch_rows,
-    two_loop_cuda,
+    BLOCKED, COOPERATIVE, RESIDENT_MAX_M, STREAMING, group_size, kernel_dispatch, launch,
+    prefetch_rows, two_loop_cuda,
 )
 
 # the modules (their packages re-export a function of the same name)
@@ -269,6 +271,65 @@ def test_launch_refuses_a_prefetch_distance(impl, prefetch, why):
     assert two_loop_cuda.LAUNCHES == before
 
 
+@pytest.mark.parametrize("n_pad,m,pair_dtype,want", [
+    (101888, RESIDENT_MAX_M, torch.float32, COOPERATIVE),   # the cap itself
+    (101888, RESIDENT_MAX_M, torch.bfloat16, COOPERATIVE),
+    (101888, RESIDENT_MAX_M + 1, torch.float32, STREAMING),  # K1's slices fit, the cap refuses
+    (101888, 30, torch.bfloat16, STREAMING),
+    (1024, 20, torch.float32, STREAMING),
+])
+def test_kernel_dispatch_resident_cap(n_pad, m, pair_dtype, want):
+    """The resident kernel takes m <= RESIDENT_MAX_M (16) wherever its
+    slices fit; a ring above the cap whose slices would fit goes to the
+    streaming kernel with the cap as its reason."""
+    impl, reason = kernel_dispatch(n_pad, m, torch.float32, pair_dtype)
+    assert impl == want
+    assert (reason == "") == (m <= RESIDENT_MAX_M)
+    if m > RESIDENT_MAX_M:
+        assert reason == f"m={m} is above the resident kernel's cap of {RESIDENT_MAX_M} pairs"
+
+
+def test_launch_refuses_the_resident_kernel_above_its_cap():
+    """launch(COOPERATIVE) on m = cap + 1 raises naming the cap, before the
+    device check (the tensors here are on the CPU) and before any launch."""
+    hist = ttl.empty_history_state(RESIDENT_MAX_M + 1, 1000, torch.float32)
+    before = dict(two_loop_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match=f"at most {RESIDENT_MAX_M} pairs"):
+        launch(COOPERATIVE, torch.zeros(1000), hist)
+    assert two_loop_cuda.LAUNCHES == before
+
+
+def test_resident_phase_study_parses():
+    """K1's phase study: one label per interval between the kernel's
+    N_STAMPS stamps, the mean per phase from (ns, cycles) stamps, a refusal
+    of stamps of another shape, and of a run without a card."""
+    from lbfgs_ffnn_torch.experiments import resident_phase_study as study
+    from lbfgs_ffnn_torch.ops.cuda_two_loop import N_STAMPS
+
+    src = (_build_csrc() / "two_loop.cu").read_text()
+    assert f"constexpr int kStamps = {N_STAMPS};" in src
+    assert len(study.PHASES) == N_STAMPS - 1 == src.count("stamp<kStamps>(p, ") - 1
+    stamps = np.zeros((2, N_STAMPS, 2), dtype=np.int64)
+    stamps[0, :, 0] = np.arange(N_STAMPS) * 1000          # 1 us per phase
+    stamps[1, :, 0] = np.arange(N_STAMPS) ** 2 * 1000     # 2k + 1 us
+    stamps[:, :, 1] = np.arange(N_STAMPS) * 1980
+    split = study.phase_split(stamps)
+    assert list(split) == list(study.PHASES)
+    for k, (us, cycles) in enumerate(split.values()):
+        assert us == pytest.approx((1 + 2 * k + 1) / 2) and cycles == 1980
+    with pytest.raises(ValueError):
+        study.phase_split(stamps[:, 1:])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+            study.main([])
+
+
+def _build_csrc():
+    from lbfgs_ffnn_torch import _build
+
+    return _build.CSRC
+
+
 def test_blocked_stage_study_finds_its_anchors():
     """The K3 stage study builds its variants by replacing text of
     csrc/two_loop.cu; each piece it replaces is there exactly once, and
@@ -461,9 +522,10 @@ def test_grouped_matches_pallas_streaming(group, pair):
 @functools.lru_cache(maxsize=None)
 def _f64_ring(name):
     """(v, ring) in f64: random rings, or the last ring and gradient a
-    30-iteration f64 L-BFGS m=20 solve of a 64-64-32-10 MLP hands its
-    two-loop, where the pairs are correlated and rho spans three decades."""
-    if name != "mlp":
+    30-iteration f64 L-BFGS m=20 ("mlp") or m=10 ("mlp-m10") solve of a
+    64-64-32-10 MLP hands its two-loop, where the pairs are correlated and
+    rho spans two decades (m=20) or more than one (m=10)."""
+    if not name.startswith("mlp"):
         m, k, n = {"random": (100, 37, 3001), "random-wrapped": (100, 130, 3001)}[name]
         v = torch.tensor(np.random.default_rng(4).normal(size=n))
         return v, torch_ring(m, n, make_pairs(n, k, seed=k))
@@ -483,26 +545,26 @@ def _f64_ring(name):
         seen.append((v, hist._replace(S=hist.S.clone(), Y=hist.Y.clone(), rho=hist.rho.clone())))
         return plain(v, hist, **kw)
 
+    m = 10 if name == "mlp-m10" else 20
     solver.two_loop = capture
     try:
         lbfgs(tmlp.mlp_problem(spec), w0, aux,
-              LBFGSOptions(max_iters=30, tol=1e-12, m=20, two_loop_impl="plain"))
+              LBFGSOptions(max_iters=30, tol=1e-12, m=m, two_loop_impl="plain"))
     finally:
         solver.two_loop = plain
     v, hist = seen[-1]
-    assert int(hist.count) == 20 and float(hist.rho.max()) > 100 * float(hist.rho.min())
+    spread = 100 if m == 20 else 10  # rho's spread on each ring, max / min
+    assert int(hist.count) == m and float(hist.rho.max()) > spread * float(hist.rho.min())
     return v, hist
 
 
-@GROUPS
-@pytest.mark.parametrize("ring", ["random", "random-wrapped", "mlp"])
-def test_grouped_f32_error_within_twice_plain(group, ring):
-    """In f32 the grouped algebra is about as accurate as the sequential
-    loop: against the f64 recursion on the same f32 ring, its error is at
-    most twice the plain f32 loop's, over eight vectors (the ring's own v
-    and seven random ones), both as the worst entry's error (relative to
-    that vector's max |ref|) and as the RMS of the relative 2-norm errors.
-    Both are near f32 rounding, so one vector's max error alone is noisy."""
+def _assert_f32_error_within_twice_plain(fn, ring):
+    """In f32 ``fn(v, ring)`` is about as accurate as the sequential loop:
+    against the f64 recursion on the same f32 ring, its error is at most
+    twice the plain f32 loop's, over eight vectors (the ring's own v and
+    seven random ones), both as the worst entry's error (relative to that
+    vector's max |ref|) and as the RMS of the relative 2-norm errors. Both
+    are near f32 rounding, so one vector's max error alone is noisy."""
     v64, h64 = _f64_ring(ring)
     h32 = h64._replace(S=h64.S.float(), Y=h64.Y.float(), rho=h64.rho.float())
     href = h32._replace(S=h32.S.double(), Y=h32.Y.double(), rho=h32.rho.double())
@@ -512,7 +574,7 @@ def test_grouped_f32_error_within_twice_plain(group, ring):
     sq_g = sq_p = max_g = max_p = 0.0
     for v in vs:
         ref = ttl.two_loop(v.double(), href)
-        d_g = ttl.two_loop_grouped(v, h32, group).double() - ref
+        d_g = fn(v, h32).double() - ref
         d_p = ttl.two_loop(v, h32).double() - ref
         scale, peak = float(ref.norm()), float(ref.abs().max())
         sq_g += (float(d_g.norm()) / scale) ** 2
@@ -521,3 +583,75 @@ def test_grouped_f32_error_within_twice_plain(group, ring):
         max_p = max(max_p, float(d_p.abs().max()) / peak)
     assert 0 < max_p and max_g <= 2 * max_p  # worst entry over the eight vectors
     assert 0 < sq_p and sq_g <= 4 * sq_p  # RMS ratio <= 2
+
+
+@GROUPS
+@pytest.mark.parametrize("ring", ["random", "random-wrapped", "mlp"])
+def test_grouped_f32_error_within_twice_plain(group, ring):
+    """The grouped algebra at each k, held as
+    _assert_f32_error_within_twice_plain says."""
+    _assert_f32_error_within_twice_plain(functools.partial(ttl.two_loop_grouped, k=group), ring)
+
+
+@pytest.mark.parametrize("ring", ["random", "random-wrapped", "mlp", "mlp-m10"])
+def test_compact_f32_error_within_twice_plain(ring):
+    """The compact form (K1's algebra: every product against v or z0 at
+    once) is as accurate in f32 as the sequential loop, on the m=100 random
+    rings and the rings of the MLP solves at m = 20 and m = 10."""
+    _assert_f32_error_within_twice_plain(ttl.two_loop_compact, ring)
+
+
+# (m, pairs pushed, n): empty, one pair, partial, full and wrapped, at m = 5
+# and 10, odd and aligned n
+COMPACT_CASES = [(5, 0, 300), (5, 1, 301), (5, 3, 301), (5, 5, 300), (5, 9, 257),
+                 (10, 0, 257), (10, 1, 300), (10, 4, 2048), (10, 10, 301), (10, 13, 3000)]
+
+
+@pytest.mark.parametrize("m,k,n", COMPACT_CASES)
+@pytest.mark.parametrize("clamp", [False, True])
+def test_compact_matches_jax_f64(m, k, n, clamp):
+    """The port's two_loop_compact is JAX's (same algebra, same logical
+    order): f64, rtol 1e-12; it is also the loop form's H v."""
+    pairs = make_pairs(n, k, seed=m + k)
+    v = np.random.default_rng(1).normal(size=n)
+    hist = torch_ring(m, n, pairs)
+    r_t = ttl.two_loop_compact(torch.tensor(v), hist, clamp_gamma=clamp)
+    r_j = jtl.two_loop_compact(jnp.asarray(v), jax_ring(m, n, pairs), clamp_gamma=clamp)
+    assert r_t.shape == (n,)
+    np.testing.assert_allclose(r_t.numpy(), np.asarray(r_j), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(r_t.numpy(), ttl.two_loop(torch.tensor(v), hist,
+                                                         clamp_gamma=clamp).numpy(),
+                               rtol=1e-10, atol=1e-12)
+    if k == 0:
+        assert torch.equal(r_t, torch.tensor(v))
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 3, 301), (10, 10, 301), (10, 13, 3000)])
+@pytest.mark.parametrize("pair", ["float32", "bfloat16"])
+def test_compact_matches_jax_f32(m, k, n, pair):
+    """f32 solver, f32 or bf16 ring (the same stored rows in both packages,
+    upcast before every product): the two compact forms agree to 1e-5 of
+    max|r| (f32 sums taken in other orders)."""
+    pairs = [(s.astype(np.float32), y.astype(np.float32))
+             for s, y in make_pairs(n, k, seed=m + k)]
+    v = np.random.default_rng(1).normal(size=n).astype(np.float32)
+    t = torch_ring(m, n, pairs, torch.float32, pair_dtype=getattr(torch, pair))
+    j = jax_ring(m, n, pairs, jnp.float32, pair_dtype=getattr(jnp, pair))
+    r_t = ttl.two_loop_compact(torch.tensor(v), t).numpy()
+    r_j = np.asarray(jtl.two_loop_compact(jnp.asarray(v), j))
+    assert np.abs(r_t - r_j).max() <= 1e-5 * np.abs(r_j).max()
+
+
+def test_compact_head_ahead_of_count():
+    """count < m with head != count: both packages read the logical order
+    (oldest at (head - count) % m) on the device, and agree with the loop."""
+    m, n = 10, 301
+    pairs = make_pairs(n, 13, seed=3)
+    v = np.random.default_rng(2).normal(size=n)
+    t = torch_ring(m, n, pairs)._replace(count=torch.tensor(6, dtype=torch.int32))
+    j = jax_ring(m, n, pairs)._replace(count=jnp.array(6, dtype=jnp.int32))
+    r_t = ttl.two_loop_compact(torch.tensor(v), t)
+    np.testing.assert_allclose(r_t.numpy(), np.asarray(jtl.two_loop_compact(jnp.asarray(v), j)),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(r_t.numpy(), ttl.two_loop(torch.tensor(v), t).numpy(),
+                               rtol=1e-10, atol=1e-12)
