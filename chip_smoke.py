@@ -6,10 +6,11 @@
 
 Phases, each printing its lines (any failure raises and exits non-zero):
   1. device   - refuses to run without CUDA; torch, CUDA, nvcc and card
-  2. build    - compiles lbfgs_ffnn_torch/csrc/two_loop.cu for sm_90a and
-                prints ptxas's report for every kernel (K1 and its
-                timestamped build, K2 at each group size k, K3) and both
-                pair types
+  2. build    - compiles lbfgs_ffnn_torch/csrc/two_loop.cu and
+                csrc/conditional.cu (CUDA graph IF nodes) for sm_90a, the
+                two nvcc runs together, and prints ptxas's report for every
+                kernel (K1 and its timestamped build, K2 at each group size
+                k, K3) and both pair types
   3. kernel   - the cooperative kernel (K1, the compact form) against its
                 plain torch version on the m=10, n=101,770 f32 and bf16
                 rings: empty, partial, full and wrapped, clamp on and off;
@@ -39,9 +40,19 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 process of its own)
   7. solve    - 100 iterations of L-BFGS (m=10, Armijo, ls_max_iters=20) on
                 the 784-128-10 MLP at N=60,000, f32, through the kernel, then
-                through the plain two-loop; the loss must fall, K1 must run
-                once per direction, and the two solves agree
-  8. deep     - the runner (lbfgs_ffnn_torch.experiments.run_mnist) on the
+                through the plain two-loop (both on the resident driver);
+                the loss must fall, K1 must run once per direction, and the
+                two solves agree
+  8. resident - the main path on the resident driver: lbfgs() on CUDA
+                tensors (each iteration a replayed CUDA graph, its Armijo
+                trials decided on the card by IF nodes) against the resident
+                body run eagerly (loss histories to rtol 1e-6, counters
+                equal) and the early-exit loop (first 5 losses to rtol 1e-4,
+                n_fevals equal over 20 iterations, final loss within 2%);
+                host syncs <= ceil(iters / chunk) + 2; K1 launched once per
+                direction, counted on the device; ms/iter of each run and
+                the device time of a trial slot that does not fire
+  9. deep     - the runner (lbfgs_ffnn_torch.experiments.run_mnist) on the
                 deep 784-256-128-64-10 Fashion net at N=60,000 from seeded
                 label files: GD, L-BFGS m=100 through K2 (k = 4 for the f32
                 ring, 8 for bf16) in f32 and bf16 ring, and through the
@@ -53,19 +64,27 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 plain one on that ring (first 5 losses to rtol 1e-4) at
                 every seed; prints the final losses per seed and the bf16
                 ring's parity with f32 (the bench's 2% rule, a reading)
-  9. large    - L-BFGS (m=50, f32) on the extended Rosenbrock at
+ 10. large    - L-BFGS (m=50, f32) on the extended Rosenbrock at
                 n=2,000,000 through the harness (lbfgs_ffnn_torch.harness),
                 120 iterations under Armijo (ls_max_iters=20) and under
                 Wolfe, each through K3, through the plain two-loop, and with
                 the bf16 ring through the kernel the dispatch picks (K3);
                 the kernels must run once per direction, the kernel and
                 plain solves agree
- 10. result   - one JSON line with the three kernels' numbers (K2's with its
+ 11. bench    - python -m lbfgs_ffnn_torch.experiments.bench in a process of
+                its own (the 1000-iteration headline, its supplementary rows
+                on stderr); its one stdout line must be the contract JSON
+ 12. result   - one JSON line with the three kernels' numbers (K2's with its
                 group size, K3's with its prefetch distance and its time at
                 each distance), then the last line {"ok": true, "device": {...}}
 
+The Armijo solves of phases 7-10 run on the resident driver; their host
+syncs are held to ceil(iters / chunk) + 2, and every launch count is read
+from the kernels' counters on the device.
+
 --profile adds torch.profiler readings: each kernel's device time per call
 in the dispatch table, and the device time by kernel of 10 MNIST iterations,
+of the 100-iteration resident MNIST solve,
 of the whole deep L-BFGS m=100 f32 solve and of the whole large Rosenbrock
 Armijo solve through K3, each beside the wall time of the same solve
 unprofiled, with the two-loop kernel's device time per iteration.
@@ -76,6 +95,7 @@ Imports nothing of JAX. Full f32 throughout: TF32 is switched off.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 import subprocess
@@ -135,9 +155,20 @@ def device_phase(torch):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    from lbfgs_ffnn_torch.ops.control import conditional_nodes_supported
+
+    driver = ctypes.c_int()
+    check(ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(driver)) == 0,
+          "cuDriverGetVersion failed")
+    cond_ok, cond_why = conditional_nodes_supported()
+    check(cond_ok, cond_why)
     say("device", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, nvcc: {nvcc}; {torch.cuda.get_device_name(0)} "
-        f"x{torch.cuda.device_count()}; TF32 off")
+        f"CUDA {torch.version.cuda}, nvcc: {nvcc}; driver CUDA {driver.value // 1000}."
+        f"{driver.value % 1000 // 10}; {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}; TF32 off; CUDA graph IF nodes through "
+        "csrc/conditional.cu (torch's CUDAGraph has none), CUDA 12.4+ needed")
+    check(driver.value >= 12040, f"the driver's CUDA {driver.value} is older than 12.4, which "
+          "conditional nodes need")
     print(smi, flush=True)
     return smi
 
@@ -163,12 +194,18 @@ def _kernel_label(name):
 
 def build_phase():
     from lbfgs_ffnn_torch import _build
+    from lbfgs_ffnn_torch.ops import control
     from lbfgs_ffnn_torch.ops.cuda_two_loop import _lib
 
-    built = _build.build("two_loop")
+    t0 = time.perf_counter()
+    builds = _build.build_all(["two_loop", "conditional"])  # one nvcc each, together
     _lib()
-    say("build", f"{built.path.name} from csrc/two_loop.cu with {' '.join(_build.NVCC_FLAGS)} "
-        f"in {built.seconds:.2f} s (compiled={built.compiled})")
+    control._lib()
+    for name, b in builds.items():
+        say("build", f"{b.path.name} from csrc/{name}.cu with {' '.join(_build.NVCC_FLAGS)} "
+            f"in {b.seconds:.2f} s (compiled={b.compiled})")
+    say("build", f"both built in {time.perf_counter() - t0:.2f} s of wall time")
+    built = builds["two_loop"]
     kind = None
     for line in built.log.splitlines():
         if "Compiling entry function" in line:
@@ -508,8 +545,8 @@ def solve_phase(torch, dev, profile: bool, mnist_root):
     opts = {impl: LBFGSOptions(max_iters=ITERS, tol=1e-12, m=M, line_search="armijo",
                                ls_max_iters=20, two_loop_impl=impl)
             for impl in ("cuda", "plain")}
-    for impl in opts:  # warm-up: cuBLAS handles, allocator, functorch
-        lbfgs(problem, w0, aux, opts[impl]._replace(max_iters=3))
+    for impl in opts:  # warm-up: cuBLAS handles, allocator, and the captured iteration
+        lbfgs(problem, w0, aux, opts[impl])
     torch.cuda.synchronize()
 
     # cuda (the counted run), plain, plain, cuda: one card, taken in turns
@@ -557,6 +594,143 @@ def solve_phase(torch, dev, profile: bool, mnist_root):
     return launches[COOPERATIVE], ms_iter
 
 
+def _skipped_slot_us(torch, dev, slots=20, reps=500):
+    """Device µs per trial slot that does not fire: a captured graph of one
+    small op and ``slots`` guarded slots, each with the Armijo slot's
+    predicate ``~ok & (i < slots)`` on an accepted search, against the same
+    graph without the slots, ``reps`` replays each, CUDA events."""
+    from lbfgs_ffnn_torch.ops.control import Graph, assign, capture, guard
+
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    i = torch.zeros((), dtype=torch.int32, device=dev)
+    x = torch.zeros((), device=dev)
+
+    def body(n):
+        x.mul_(1.0)
+        for _ in range(n):
+            live = ~ok & (i < slots)
+            with guard(live):
+                assign(live, x, x + 1.0)
+
+    ms = {}
+    for n in (0, slots):
+        body(n)
+        graph = Graph()
+        with capture(graph):
+            body(n)
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms[n] = start.elapsed_time(end) / reps
+        del graph
+    check(float(x) == 0.0, "a slot that should not fire wrote its result")
+    return (ms[slots] - ms[0]) * 1e3 / slots, ms
+
+
+def resident_phase(torch, dev, profile: bool, mnist_root):
+    """The MNIST main path on the resident driver: lbfgs() on CUDA tensors,
+    each iteration a replayed CUDA graph whose Armijo trials are decided on
+    the card, against the resident body run eagerly (masked writes, nothing
+    captured) and against the early-exit loop."""
+    import importlib
+
+    from lbfgs_ffnn_torch.objectives.mlp import evaluate, mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn_torch.ops.cuda_two_loop import COOPERATIVE, two_loop_cuda
+
+    sl = importlib.import_module("lbfgs_ffnn_torch.solvers.lbfgs")  # the module, not lbfgs()
+
+    aux, source = _data(torch, dev, mnist_root)
+    spec = mlp_spec(DIMS, ACTS)
+    problem = mlp_problem(spec)
+    w0 = mlp_init(spec, torch.Generator().manual_seed(SEED), torch.float32, device=dev)
+    f0 = float(problem.fun(w0, aux))
+    opts = sl.LBFGSOptions(max_iters=ITERS, tol=1e-12, m=M, line_search="armijo",
+                           ls_max_iters=20)
+    runs = {"captured": lambda o: sl.lbfgs(problem, w0, aux, o),
+            "eager": lambda o: sl._lbfgs_resident_eager(problem, w0, aux, o),
+            "loop": lambda o: sl._lbfgs_loop(problem, w0, aux, o)}
+    sl.clear_graph_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runs["captured"](opts)  # captures the iteration (warm-up included), then solves
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    say("resident", f"data: {source}; first captured solve (eager warm-up + capture + "
+        f"{ITERS} iterations) {first_s:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name in ("eager", "loop"):
+        runs[name](opts._replace(max_iters=3))  # warm-up
+
+    results, times, launches = {}, {k: [] for k in runs}, None
+    for name in ("captured", "eager", "loop", "loop", "eager", "captured"):
+        _reset(two_loop_cuda.LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = runs[name](opts)
+        end.record()
+        torch.cuda.synchronize()
+        if name == "captured" and launches is None:
+            launches = dict(two_loop_cuda.LAUNCHES)
+        times[name].append(start.elapsed_time(end) / res.n_iters)
+        if name in results:
+            check(torch.equal(res.x, results[name].x), f"{name}: two runs differ")
+            continue
+        results[name] = res
+        lh = res.loss_history[:res.n_iters]
+        check(res.n_iters == ITERS and bool(torch.isfinite(lh).all())
+              and bool(torch.isfinite(res.x).all()), f"{name}: non-finite or short solve")
+        check(float(res.final_loss) < f0, f"{name}: loss did not fall")
+    rc, re_, rl = results["captured"], results["eager"], results["loop"]
+    bound = -(-rc.n_iters // sl.RESIDENT_CHUNK) + 2
+    check(rc.n_host_syncs <= bound, f"captured: {rc.n_host_syncs} host syncs > {bound}")
+    check(launches[COOPERATIVE] == rc.n_iters and sum(launches.values()) == rc.n_iters,
+          f"captured: launches {launches} != {rc.n_iters} directions through K1 (device count)")
+    check((rc.n_iters, rc.n_fevals, rc.n_gevals) == (re_.n_iters, re_.n_fevals, re_.n_gevals),
+          f"captured vs eager body: counters {(rc.n_iters, rc.n_fevals, rc.n_gevals)} vs "
+          f"{(re_.n_iters, re_.n_fevals, re_.n_gevals)}")
+    lc, le = rc.loss_history.cpu().numpy(), re_.loss_history.cpu().numpy()
+    check(np.allclose(lc, le, rtol=1e-6, atol=0), "captured vs eager body: loss histories "
+          f"differ beyond rtol 1e-6 (max rel {np.max(np.abs(lc - le) / np.abs(le)):.3e})")
+    bitwise = {k: torch.equal(getattr(rc, k), getattr(re_, k))
+               for k in ("x", "loss_history", "gnorm_history")}
+    first_c, first_l = lc[:5], rl.loss_history[:5].cpu().numpy()
+    check(np.allclose(first_c, first_l, rtol=1e-4, atol=0),
+          f"captured vs loop: first 5 losses differ: {first_c} vs {first_l}")
+    short = {name: runs[name](opts._replace(max_iters=20)) for name in ("captured", "loop")}
+    check(short["captured"].n_fevals == short["loop"].n_fevals,
+          f"n_fevals over 20 iterations: captured {short['captured'].n_fevals}, loop "
+          f"{short['loop'].n_fevals}")
+    fc, fl = float(rc.final_loss), float(rl.final_loss)
+    check(abs(fc - fl) <= LOSS_GATE * fl, f"final loss captured {fc} vs loop {fl}: > 2%")
+    ms_iter = {k: min(t) for k, t in times.items()}
+    for name, res in results.items():
+        trials = (res.n_fevals - 1) / res.n_iters - 1
+        say("resident", f"{name}: {res.n_iters} iters, loss {f0:.6g} -> "
+            f"{float(res.final_loss):.6g}, train acc {evaluate(spec, res.x, *aux)['accuracy']:.2f}%,"
+            f" {ms_iter[name]:.4f} ms/iter (CUDA events, min of "
+            f"{[round(t, 4) for t in times[name]]}), n_fevals {res.n_fevals} ({trials:.3f} "
+            f"trials/iter), n_gevals {res.n_gevals}, host syncs {res.n_host_syncs} "
+            f"({res.n_host_syncs / res.n_iters:.3f}/iter)")
+    slot_us, slot_ms = _skipped_slot_us(torch, dev)
+    say("resident", f"captured = eager body: counters equal, loss histories to rtol 1e-6, "
+        f"bitwise {bitwise}; captured vs loop: first 5 losses to rtol 1e-4, n_fevals over 20 "
+        f"iterations {short['captured'].n_fevals} = {short['loop'].n_fevals}, final "
+        f"{fc:.6g} vs {fl:.6g} ({abs(fc - fl) / fl * 100:.3f}% apart, limit 2%); host syncs "
+        f"{rc.n_host_syncs} <= {bound}; K1 launches (device count) {launches} = {rc.n_iters} "
+        f"directions; a trial slot that does not fire costs {slot_us:.3f} us of device time "
+        f"(graph replay {slot_ms[0] * 1e3:.2f} us bare, {slot_ms[20] * 1e3:.2f} us with 20 "
+        "such slots)")
+    if profile:
+        _profile(torch, problem, w0, aux, opts)
+    sl.clear_graph_cache()
+    return launches[COOPERATIVE], ms_iter, rc
+
+
 def deep_phase(torch, profile: bool):
     """The runner's entry point on the deep Fashion net at full width, then
     its four L-BFGS m=100 solves at DEEP_SEEDS - 1 further init seeds
@@ -570,7 +744,9 @@ def deep_phase(torch, profile: bool):
     from lbfgs_ffnn_torch.ops.cuda_two_loop import (
         COOPERATIVE, STREAMING, group_size, two_loop_cuda,
     )
+    from lbfgs_ffnn_torch.solvers.lbfgs import RESIDENT_CHUNK, clear_graph_cache
 
+    sl = sys.modules["lbfgs_ffnn_torch.solvers.lbfgs"]
     n_pad = -(-_n_params(DEEP_DIMS) // 128) * 128
     groups = {name: group_size(n_pad, M_DEEP, pb) for name, pb in (("f32", 4), ("bf16", 2))}
     with tempfile.TemporaryDirectory() as tmp:
@@ -587,8 +763,11 @@ def deep_phase(torch, profile: bool):
         for _, cfg, report in run_mnist.main(base + ["--only", "FASHION_GD"]):
             runs["gd"] = (cfg, report)
         _reset(two_loop_cuda.LAUNCHES)
+        captures = sl._Resident.captures
         kernel_runs = run_mnist.main(base + ["--bf16-ring", "--only", "m100"])
         launches = dict(two_loop_cuda.LAUNCHES)
+        # each capture runs the body once eagerly first: one direction more
+        captures = sl._Resident.captures - captures
         for _, cfg, report in kernel_runs:
             runs["bf16" if cfg.pair_dtype else "f32"] = (cfg, report)
         for _, cfg, report in run_mnist.main(
@@ -607,8 +786,13 @@ def deep_phase(torch, profile: bool):
                 f"loss {lh[0]:.6g} -> {lh[-1]:.6g}, train acc {rep.train_eval['accuracy']:.2f}%, "
                 f"{rep.ms_per_iter:.3f} ms/iter (CUDA events), host syncs {res.n_host_syncs} "
                 f"({res.n_host_syncs / res.n_iters:.2f}/iter); {Path(rep.csv_path).name} ok")
-        directions = sum(runs[k][1].result.n_iters + runs[k][1].warmup_iters
-                         for k in ("f32", "bf16"))
+        for key in ("f32", "bf16", "plain", "plain-bf16"):
+            res = runs[key][1].result
+            bound = -(-res.n_iters // RESIDENT_CHUNK) + 2
+            check(res.n_host_syncs <= bound,
+                  f"deep {key}: {res.n_host_syncs} host syncs > {bound} (resident driver)")
+        directions = captures + sum(runs[k][1].result.n_iters + runs[k][1].warmup_iters
+                                    for k in ("f32", "bf16"))
         check(launches[STREAMING] == directions and launches[COOPERATIVE] == 0,
               f"kernel launches {launches} != {directions} directions through K2")
         lk, lp, lb, lpb = (float(runs[k][1].result.final_loss)
@@ -631,10 +815,12 @@ def deep_phase(torch, profile: bool):
             for key, results in solves.items():
                 cfg = dataclasses.replace(runs[key][0], seed=runs[key][0].seed + s,
                                           write_csv=False)
+                c0 = sl._Resident.captures  # this Launcher's problem captures anew
                 rep = launcher.train("lbfgs", cfg, verbose=False)
                 results.append(rep.result)
                 if not key.startswith("plain"):
-                    seed_directions += rep.result.n_iters + rep.warmup_iters
+                    seed_directions += (rep.result.n_iters + rep.warmup_iters
+                                        + sl._Resident.captures - c0)
         seed_launches = dict(two_loop_cuda.LAUNCHES)
         check(seed_launches[STREAMING] == seed_directions and seed_launches[COOPERATIVE] == 0,
               f"seed runs: launches {seed_launches} != {seed_directions} directions through K2")
@@ -658,7 +844,7 @@ def deep_phase(torch, profile: bool):
 
         say("deep", f"K2 launches in the kernel runs (k={groups['f32']} f32 ring, "
             f"k={groups['bf16']} bf16): {launches} = {directions} directions (timed + warm-up "
-            f"solves), at seeds {seeds[1:]} {seed_launches} = {seed_directions}; first 5 losses "
+            f"solves + {captures} captures' eager run of the body), at seeds {seeds[1:]} {seed_launches} = {seed_directions}; first 5 losses "
             f"agree with the plain loop's to rtol 1e-4 on both rings at every seed; seed "
             f"{seeds[0]}: final kernel {lk:.6g} vs plain {lp:.6g} "
             f"({abs(lk - lp) / lp * 100:.3f}% apart, limit 2%), bf16 ring {lb:.6g} vs plain "
@@ -682,6 +868,7 @@ def deep_phase(torch, profile: bool):
         ms_iter = {k: rep.ms_per_iter for k, (cfg, rep) in runs.items()}
         if profile:
             _profile_deep(torch, root, runs["f32"][0])
+    clear_graph_cache()
     return launches[STREAMING], ms_iter
 
 
@@ -727,8 +914,11 @@ def _profile(torch, problem, w0, aux, opts):
     two_loop_us = sum(e.self_device_time_total for e in events
                       if any(name in e.key for name in KERNEL_NAMES))
     k = res.n_iters
+    # The busy total holds for a solve replayed from a CUDA graph, but the
+    # profiler has given replayed kernels other kernels' names (PERF.md §7).
     say("profile", f"{k} iters: device busy {busy / k:.1f} us/iter (traced), the two-loop "
-        f"kernel {two_loop_us / k:.1f} us/iter of it ({two_loop_us / busy * 100:.1f}%); wall "
+        f"kernel {two_loop_us / k:.1f} us/iter of it ({two_loop_us / busy * 100:.1f}%; kernel "
+        f"names under graph replay are not reliable); wall "
         f"{traced_us / k:.1f} us/iter traced, {[round(b / k, 1) for b in bare]} us/iter "
         f"unprofiled (same solve, this run); device idle {100 - busy / min(bare) * 100:.1f}% "
         f"of the faster unprofiled wall, {100 - busy / traced_us * 100:.1f}% of the traced wall")
@@ -747,7 +937,7 @@ def large_phase(torch, dev, profile: bool, n=N_LARGE, iters=LARGE_ITERS, m=M_LAR
     from lbfgs_ffnn_torch.ops.cuda_two_loop import (
         BLOCKED, STREAMING, group_size, kernel_dispatch, two_loop_cuda,
     )
-    from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, lbfgs
+    from lbfgs_ffnn_torch.solvers.lbfgs import RESIDENT_CHUNK, LBFGSOptions, clear_graph_cache, lbfgs
 
     problem = rosenbrock_problem()
     x0 = rosenbrock_start(n, torch.float32, dev)
@@ -766,8 +956,9 @@ def large_phase(torch, dev, profile: bool, n=N_LARGE, iters=LARGE_ITERS, m=M_LAR
     variants = {"cuda": {}, "plain": {"two_loop_impl": "plain"}, "bf16": {"pair_dtype": "bfloat16"}}
     opts = {f"{ls}-{v}": LBFGSOptions(max_iters=iters, tol=1e-12, m=m, **kw, **extra)
             for ls, kw in searches.items() for v, extra in variants.items()}
-    for o in opts.values():  # warm-up: cuBLAS, allocator, kernel configs
-        lbfgs(problem, x0, (), o._replace(max_iters=3))
+    for o in opts.values():  # warm-up: cuBLAS, allocator, kernel configs, and the
+        # Armijo solves' captured iterations (a solve of their own options)
+        lbfgs(problem, x0, (), o if o.line_search == "armijo" else o._replace(max_iters=3))
     if dev.type == "cuda":
         torch.cuda.synchronize()
 
@@ -802,6 +993,10 @@ def large_phase(torch, dev, profile: bool, n=N_LARGE, iters=LARGE_ITERS, m=M_LAR
             f"events, harness), n_fevals {res.n_fevals}, n_gevals {res.n_gevals}, host syncs "
             f"{res.n_host_syncs} ({res.n_host_syncs / res.n_iters:.2f}/iter), launches "
             f"{launches[name]} on {rec.device}")
+    for name, res in results.items():
+        if name.startswith("armijo"):  # the resident driver
+            bound = -(-res.n_iters // RESIDENT_CHUNK) + 2
+            check(res.n_host_syncs <= bound, f"{name}: {res.n_host_syncs} host syncs > {bound}")
     f64 = {}  # the f64 plain solve's final loss, per search, where it judges
     for ls in searches:
         rk, rp, rb = (results[f"{ls}-{v}"] for v in variants)
@@ -834,7 +1029,30 @@ def large_phase(torch, dev, profile: bool, n=N_LARGE, iters=LARGE_ITERS, m=M_LAR
             f"({abs(lb - lk) / lk * 100:.3e}% from f32)")
     if profile:
         _profile(torch, problem, x0, (), opts["armijo-cuda"])
+    clear_graph_cache()
     return sum(launches[f"{ls}-cuda"][BLOCKED] for ls in searches), ms_iter
+
+
+def bench_phase():
+    """The port's bench (python -m lbfgs_ffnn_torch.experiments.bench) in a
+    process of its own: its last stdout line must be the contract JSON with
+    a finite value."""
+    say("bench", "python -m lbfgs_ffnn_torch.experiments.bench (stderr follows)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lbfgs_ffnn_torch.experiments.bench"],
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stderr.splitlines():
+        say("bench", line)
+    check(proc.returncode == 0, f"the bench exited with {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) == 1, f"the bench printed {len(lines)} stdout lines, not one")
+    out = json.loads(lines[-1])
+    check(out.get("metric") == "MNIST 784-128-10 full-batch L-BFGS m=10 step time"
+          and out.get("unit") == "ms/iter" and np.isfinite(out.get("value", np.nan))
+          and out["value"] > 0 and abs(out["vs_baseline"] - 7.20 / out["value"]) < 2e-3,
+          f"the bench's line is not the contract: {lines[-1]}")
+    say("bench", f"{lines[-1]} ({time.perf_counter() - t0:.1f} s)")
+    return out
 
 
 def main() -> None:
@@ -859,8 +1077,11 @@ def main() -> None:
     worst3, diag = blocked_phase(torch, dev)
     table = table_phase(torch, dev, args.profile)
     launches1, ms_iter = solve_phase(torch, dev, args.profile, args.mnist_root)
+    launches1r, resident_ms, resident = resident_phase(torch, dev, args.profile,
+                                                       args.mnist_root)
     launches2, deep_ms = deep_phase(torch, args.profile)
     launches3, large_ms = large_phase(torch, dev, args.profile)
+    bench = bench_phase()
 
     def entry(name, impl, replaces, launches, worst, m, n):
         ms, b_ms, b_by, _, k_pick, d_pick = table[m, n, "f32"]
@@ -880,14 +1101,17 @@ def main() -> None:
 
     kernels = [
         entry("two_loop_cooperative", COOPERATIVE, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:173",
-              launches1, worst1, M, n),
+              launches1r, worst1, M, n),
         entry("two_loop_streaming", STREAMING, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:81",
               launches2, worst2, M_DEEP, _n_params(DEEP_DIMS)),
         entry("two_loop_blocked", BLOCKED, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:230",
               launches3, worst3, M_LARGE, N_LARGE),
     ]
     say("result", f"{smi}; MNIST solve ms/iter: cuda {ms_iter['cuda']:.4f}, plain "
-        f"{ms_iter['plain']:.4f}; deep ms/iter: "
+        f"{ms_iter['plain']:.4f}; resident MNIST ms/iter: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in resident_ms.items())
+        + f" (host syncs {resident.n_host_syncs / resident.n_iters:.3f}/iter); bench "
+        f"{bench['value']} ms/iter (vs_baseline {bench['vs_baseline']}); deep ms/iter: "
         + ", ".join(f"{k} {v:.4f}" for k, v in deep_ms.items())
         + "; large Rosenbrock ms/iter: " + ", ".join(f"{k} {v:.4f}" for k, v in large_ms.items())
         + "; diag n=4M m=50 ms/call: " + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in diag.items())

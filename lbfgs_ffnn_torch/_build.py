@@ -1,7 +1,8 @@
 """Builds the port's CUDA sources with nvcc and loads them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
-use into ``build/lib<name>.so`` with
+Each ``csrc/<name>.cu`` (``two_loop``: the kernels; ``conditional``: CUDA
+graph IF nodes for the captured solver iteration) exposes a plain C
+interface and is compiled on first use into ``build/lib<name>.so`` with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v
@@ -72,6 +73,15 @@ def build(name: str) -> Built:
     log.write_text(proc.stderr)
     stamp.write_text(key)
     return Built(so, seconds, True, proc.stderr)
+
+
+def build_all(names) -> dict[str, Built]:
+    """:func:`build` for each name, the nvcc runs started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 _LOADED: dict[str, ctypes.CDLL] = {}

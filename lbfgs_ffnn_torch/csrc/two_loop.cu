@@ -172,7 +172,14 @@ struct Params {
   float gamma_max;
   int prefetch;        // K3: rows of its sequence prefetched ahead into L2 (>= 1); 0 for K1, K2
   unsigned long long* stamps;  // kResidentStamped: (kStamps, 2) ns and cycles; else null
+  unsigned int* launches;      // this kernel's launch counter on the device, or null
 };
+
+// One count per launch, by block 0's thread 0, on the device: a launch
+// replayed from a CUDA graph counts as well as an eager one.
+__device__ __forceinline__ void count_launch(const Params& p) {
+  if (p.launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(p.launches, 1u);
+}
 
 // One 16-byte chunk of stored pair values, upcast to f32.
 template <typename T>
@@ -554,6 +561,7 @@ __device__ __forceinline__ void stamp(const Params& p, int k) {
 // recurrence, sweep 2, reduction 2, forward recurrence, sweep 3.
 template <typename T, bool kStamps>
 __global__ void __launch_bounds__(kThreads, 1) two_loop_resident_kernel(Params p) {
+  count_launch(p);
   using C = Chunk<T>;
   constexpr int kN = C::kN;
   cg::grid_group grid = cg::this_grid();
@@ -851,6 +859,7 @@ __global__ void __launch_bounds__(kThreads, 1) two_loop_resident_kernel(Params p
 // memory, each prefetched into L2 p.prefetch rows of the sequence ahead.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) two_loop_blocked_kernel(Params p) {
+  count_launch(p);
   constexpr int kN = Chunk<T>::kN;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem[];  // q slice
@@ -891,6 +900,7 @@ __global__ void __launch_bounds__(kThreads) two_loop_blocked_kernel(Params p) {
 // K2 (kStreaming): groups of K pairs, one grid reduction per group.
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads) two_loop_grouped_kernel(Params p) {
+  count_launch(p);
   using C = Chunk<T>;
   constexpr int kN = C::kN;
   constexpr int kV = K * (K + 1) / 2;  // a group's dots: K with the vector, then the cross dots
@@ -1175,13 +1185,15 @@ extern "C" int two_loop_config(int kind, int pair_bytes, int group, int n_pad, i
 // r = H v with f32 v (n entries, 16-byte aligned), rho, out (n_pad) and
 // (S, Y) of pair_bytes 4 (f32) or 2 (bf16), K2 in groups of `group` pairs,
 // K3 prefetching `prefetch` rows ahead (>= 1; 0 for K1 and K2). `partials` holds 2 * kNumPartials * grid
-// floats; `stamps` 2 * kStamps u64 for kResidentStamped, else null.
+// floats; `stamps` 2 * kStamps u64 for kResidentStamped, else null;
+// `launches` a u32 the kernel adds one to per launch, or null.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int two_loop_launch(int kind, int pair_bytes, int group, int prefetch, const void* v,
                                const void* S, const void* Y, const void* rho, const void* head,
                                const void* count, void* out, void* partials, int n_pad, int n,
                                int m, int grid, int slice, int smem, int clamp_gamma,
-                               float gamma_min, float gamma_max, void* stream, void* stamps) {
+                               float gamma_min, float gamma_max, void* stream, void* stamps,
+                               void* launches) {
   const void* kern = kernel_of(kind, pair_bytes, group);
   if (kern == nullptr || (kind == kBlocked ? prefetch < 1 : prefetch != 0) ||
       (is_resident(kind) && m > kResidentMaxM) ||
@@ -1205,6 +1217,7 @@ extern "C" int two_loop_launch(int kind, int pair_bytes, int group, int prefetch
   p.gamma_max = gamma_max;
   p.prefetch = prefetch;
   p.stamps = static_cast<unsigned long long*>(stamps);
+  p.launches = static_cast<unsigned int*>(launches);
   void* args[] = {&p};
   cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(kThreads), args, (size_t)smem,
                                               static_cast<cudaStream_t>(stream));

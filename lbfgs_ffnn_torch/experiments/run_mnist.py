@@ -10,7 +10,8 @@ Style "cpu" (reference main-cpu.cpp: 5,000 samples):
 
 Runs on the card unless ``--device cpu``; rows whose solver is not ported
 yet (SGD, S-LBFGS, Wolfe L-BFGS) are named on one line and not run. Each run
-writes ``<name>_history.csv`` into ``--out-dir``.
+writes ``<name>_history.csv`` into ``--out-dir``; ``--timed-chunks K`` runs
+the L-BFGS rows in K-iteration chunks with a measured ``TimeMs`` column.
 
 Usage:
   python -m lbfgs_ffnn_torch.experiments.run_mnist --dataset fashion --deep --data-root DIR
@@ -25,10 +26,10 @@ from lbfgs_ffnn_torch.data.datasets import load_fashion_mnist, load_mnist
 from lbfgs_ffnn_torch.launcher import Launcher, TrainReport, UnifiedConfig
 
 # (solver, style) rows not ported yet -> what they wait for
-_DEFERRED = {("sgd", "cpu"): "SGD, ROADMAP queue 1 item 12",
-             ("sgd", "cuda"): "SGD, ROADMAP queue 1 item 12",
-             ("slbfgs", "cpu"): "S-LBFGS, ROADMAP queue 1 item 11",
-             ("lbfgs", "cpu"): "Wolfe L-BFGS through the Launcher, ROADMAP queue 1 item 10"}
+_DEFERRED = {("sgd", "cpu"): "SGD, ROADMAP queue 1 item 7",
+             ("sgd", "cuda"): "SGD, ROADMAP queue 1 item 7",
+             ("slbfgs", "cpu"): "S-LBFGS, ROADMAP queue 1 item 6",
+             ("lbfgs", "cpu"): "Wolfe L-BFGS through the Launcher, ROADMAP queue 1 item 5"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,6 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "required; missing images are synthesized from the labels)")
     p.add_argument("--out-dir", default=".", help="where the history CSVs go")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    p.add_argument("--timed-chunks", type=int, default=0,
+                   help="K > 0: run L-BFGS in K-iteration chunks (lbfgs_chunked) with a measured "
+                        "TimeMs column (GD rows keep the whole-solve time)")
     return p
 
 
@@ -123,6 +127,8 @@ def main(argv=None) -> list[tuple[str, UnifiedConfig, TrainReport]]:
 
     done = []
     for solver, cfg in runs:
+        if solver == "lbfgs" and args.timed_chunks > 0:
+            cfg.timed_chunks = args.timed_chunks
         print(f"Running {cfg.name} ({solver}, seed={cfg.seed})...")
         report = launcher.train(solver, cfg)
         launcher.test()

@@ -10,16 +10,21 @@ Wolfe for L-BFGS and random biases. The launcher runs on ``device``, which
 is ``"cuda"`` unless the caller passes ``"cpu"``; without a card it raises
 and never moves to the CPU on its own.
 
-Timing: a short warm-up solve (``WARMUP_ITERS`` iterations) first pays the
-one-time costs of a process (the nvcc build of the kernels, cuBLAS set-up),
-then the timed solve runs; on CUDA its wall time comes from CUDA events
-around it. The JAX package's warm-up is a whole solve because it compiles;
-eager PyTorch has nothing to compile per solve.
+Timing: a short warm-up (``WARMUP_ITERS`` iterations) first pays the
+one-time costs of a process (the nvcc builds, cuBLAS set-up) and, for
+L-BFGS on the card, captures the timed solve's iteration as a CUDA graph;
+then the timed solve runs, its wall time from CUDA events around it on the
+card. With ``timed_chunks = K > 0`` (L-BFGS), the solve is
+:func:`~lbfgs_ffnn_torch.solvers.lbfgs.lbfgs_chunked` in K-iteration chunks
+and the CSV's ``TimeMs`` column is its measured cumulative time per chunk,
+as in the JAX package; without it, the whole solve's time is spread over
+the iterations.
 
 Ported: the ``"gd"`` and ``"lbfgs"`` (Armijo) solvers. Not ported yet, and
 raising ``NotImplementedError`` with their ROADMAP item when asked for:
 ``"sgd"``, ``"slbfgs"``, L-BFGS with the Wolfe search (the ``"cpu"``
-style; the solver has it, the launcher does not pass it through yet), ``timed_chunks > 0``, ``compute_dtype``, ``prefix_dtype``, the
+style; the solver has it, the launcher does not pass it through yet),
+``timed_chunks > 0`` for GD, ``compute_dtype``, ``prefix_dtype``, the
 ``*_input_dtype`` copies and ``ls_alpha_init="warm"``. The config fields
 only those read (batch size, decay, S-LBFGS sizes, ...) return with them.
 """
@@ -37,22 +42,21 @@ from lbfgs_ffnn_torch.data.datasets import Dataset
 from lbfgs_ffnn_torch.objectives.mlp import MLPSpec, evaluate, mlp_init, mlp_problem, mlp_spec
 from lbfgs_ffnn_torch.recorder import History, history_from_result, write_history_csv
 from lbfgs_ffnn_torch.solvers.gd import GDOptions, gradient_descent
-from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, lbfgs
+from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, _solve_resident, lbfgs, lbfgs_chunked
 from lbfgs_ffnn_torch.types import SolveResult
 
 WARMUP_ITERS = 2
 
 # solver -> ROADMAP queue 1 item that ports it
-_UNPORTED_SOLVERS = {"sgd": 12, "slbfgs": 11}
+_UNPORTED_SOLVERS = {"sgd": 7, "slbfgs": 6}
 # config field -> (its value when unused, ROADMAP queue 1 item that ports it)
 _UNPORTED_FIELDS = {
-    "timed_chunks": (0, 10),
     "compute_dtype": (None, 3),
     "grad_input_dtype": (None, 3),
     "line_input_dtype": (None, 3),
     "fun_input_dtype": (None, 3),
-    "prefix_dtype": (None, 6),
-    "ls_alpha_init": ("fixed", 6),
+    "prefix_dtype": (None, 3),
+    "ls_alpha_init": ("fixed", 3),
 }
 
 
@@ -77,8 +81,8 @@ class UnifiedConfig:
     write_csv: bool = True
     line_search: str = ""        # L-BFGS override: "" = backend style
     pair_dtype: Optional[str] = None  # "bfloat16": the curvature ring in bf16
+    timed_chunks: int = 0  # K > 0: L-BFGS in measured K-iteration chunks (GD: not yet)
     # Not ported yet: anything but these values raises.
-    timed_chunks: int = 0
     compute_dtype: Optional[str] = None
     prefix_dtype: Optional[str] = None
     grad_input_dtype: Optional[str] = None
@@ -108,6 +112,9 @@ def _check_ported(solver: str, c: UnifiedConfig) -> None:
                                   f"(ROADMAP queue 1 item {_UNPORTED_SOLVERS[solver]})")
     if solver not in ("gd", "lbfgs"):
         raise ValueError(f"unknown solver {solver!r}")
+    if solver == "gd" and c.timed_chunks > 0:
+        raise NotImplementedError("UnifiedConfig(timed_chunks > 0) for GD is not ported yet "
+                                  "(gd_chunked on the resident driver, ROADMAP queue 1 item 2)")
     for name, (unused, item) in _UNPORTED_FIELDS.items():
         if getattr(c, name) != unused:
             raise NotImplementedError(f"UnifiedConfig({name}={getattr(c, name)!r}) is not "
@@ -172,11 +179,23 @@ class Launcher:
             # (reference: src/unified_launcher.hpp:49-53)
             self._bind_params(config.seed)
 
-        warm = self._solve(solver, config, min(config.max_iters, WARMUP_ITERS))
-        result, wall = self._timed(lambda: self._solve(solver, config, config.max_iters))
+        measured_ms, warmup_iters = None, 0
+        if config.timed_chunks > 0:
+            # lbfgs_chunked captures its iteration before its first chunk
+            # and measures the chunks alone
+            t0 = time.perf_counter()
+            result, measured_ms = lbfgs_chunked(self._problem, self.weights,
+                                                (self._x, self._y), self._lbfgs_opts(config),
+                                                chunk=config.timed_chunks)
+            wall = time.perf_counter() - t0
+        else:
+            warmup_iters = self._warm_up(solver, config).n_iters
+            result, wall = self._timed(lambda: self._solve(solver, config, config.max_iters))
 
         self.weights = result.x
         history = history_from_result(result, wall)
+        if measured_ms is not None:
+            history.time_ms[:] = measured_ms[:history.n]
         csv_path = None
         if config.write_csv:
             self.out_dir.mkdir(parents=True, exist_ok=True)
@@ -186,14 +205,32 @@ class Launcher:
         train_eval = evaluate(self.spec, self.weights, self._x, self._y)
         if verbose:
             n_it = max(int(result.n_iters), 1)
+            if measured_ms is not None:
+                # the wall includes the capture; the measured column is the
+                # per-iteration cost
+                t_s = float(history.time_ms[n_it - 1]) / 1e3
+                t_note = f"measured={t_s:.3f}s ({t_s * 1e3 / n_it:.3f} ms/iter)"
+            else:
+                t_note = f"time={wall:.3f}s ({wall * 1e3 / n_it:.3f} ms/iter)"
             print(
                 f"[{config.name}] {solver}: iters={int(result.n_iters)} "
                 f"loss={float(result.final_loss):.6g} "
                 f"gnorm={float(result.final_gnorm):.4g} "
-                f"time={wall:.3f}s ({wall * 1e3 / n_it:.3f} ms/iter) "
+                f"{t_note} "
                 f"train_acc={train_eval['accuracy']:.2f}%"
             )
-        return TrainReport(result, history, wall, csv_path, train_eval, warm.n_iters)
+        return TrainReport(result, history, wall, csv_path, train_eval, warmup_iters)
+
+    def _warm_up(self, solver: str, c: UnifiedConfig) -> SolveResult:
+        """``WARMUP_ITERS`` iterations before the timed solve; for L-BFGS on
+        the card, of the timed solve's own captured iteration (captured
+        here, so the timed solve replays it from the cache)."""
+        n = min(c.max_iters, WARMUP_ITERS)
+        if solver == "lbfgs" and self.device.type == "cuda":
+            return _solve_resident(self._problem, self.weights, (self._x, self._y),
+                                   self._lbfgs_opts(c), chunk=max(n, 1), capture=True,
+                                   pipeline=False, iters=n)[0]
+        return self._solve(solver, c, n)
 
     def _timed(self, run) -> tuple[SolveResult, float]:
         """``run()`` and its wall time in seconds: CUDA events on a CUDA
@@ -223,7 +260,7 @@ class Launcher:
         if ls != "armijo":
             raise NotImplementedError(
                 f"L-BFGS line_search={ls!r} is not ported to the Launcher yet (ROADMAP queue 1 "
-                "item 10; lbfgs() itself takes line_search=\"wolfe\")")
+                "item 5; lbfgs() itself takes line_search=\"wolfe\")")
         # The reference CUDA backend's trial budget (minimizer_base.cuh).
         return LBFGSOptions(
             max_iters=c.max_iters, tol=c.tolerance,

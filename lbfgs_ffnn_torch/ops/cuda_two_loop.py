@@ -17,6 +17,7 @@ the dispatch names (through :func:`launch`) or raises.
 
 from __future__ import annotations
 
+import collections.abc
 import ctypes
 
 import torch
@@ -193,8 +194,9 @@ def _lib() -> ctypes.CDLL:
         lib.two_loop_config.restype = i
         # (kind, pair bytes, group, prefetch, ...): prefetch is K3's distance, 0 for K1, K2
         # (..., n_pad, n, ..., stream, stamps): stamps only for K1's timestamped build
+        # (..., stream, stamps, launches): launches is the kernel's device counter
         lib.two_loop_launch.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                        ctypes.c_float, ctypes.c_float, p, p]
+                                        ctypes.c_float, ctypes.c_float, p, p, p]
         lib.two_loop_launch.restype = i
         lib.two_loop_error_string.argtypes = [i]
         lib.two_loop_error_string.restype = ctypes.c_char_p
@@ -225,6 +227,54 @@ def _config(lib: ctypes.CDLL, device_index: int, kind: int, pair_bytes: int, gro
                f"pair bytes {pair_bytes})")
         _CONFIGS[key] = (grid.value, slice_.value, smem.value)
     return _CONFIGS[key]
+
+
+class LaunchCounts(collections.abc.MutableMapping):
+    """Launches per kernel, counted on the device: every launch adds one to
+    its kernel's int32 counter (block 0's thread 0 does), so a launch
+    replayed from a CUDA graph counts as well as an eager one, and a launch
+    captured but never replayed does not. Reading a count synchronises with
+    the device; ``LAUNCHES[k] = 0`` (before a run) resets the counters of
+    every device that has them."""
+
+    def __init__(self):
+        self._device: dict[int, torch.Tensor] = {}  # device index -> int32 (3,)
+
+    def counter(self, device: torch.device) -> torch.Tensor:
+        """The device's counters, made before any capture (an eager launch
+        always comes first: the wrapper queries the launch configuration)."""
+        idx = device.index if device.index is not None else torch.cuda.current_device()
+        if idx not in self._device:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the launch counters are made by an eager launch; capture "
+                                   "a two-loop kernel only after one has run on the device")
+            self._device[idx] = torch.zeros(len(_KIND), dtype=torch.int32,
+                                            device=torch.device("cuda", idx))
+        return self._device[idx]
+
+    def __getitem__(self, impl: str) -> int:
+        slot = _KIND[impl]
+        return sum(int(c[slot]) for c in self._device.values())
+
+    def __setitem__(self, impl: str, value: int) -> None:
+        if impl not in _KIND:
+            raise KeyError(impl)
+        if value != 0:
+            raise ValueError(f"a launch count can only be reset to 0, got {value}")
+        for c in self._device.values():
+            c[_KIND[impl]] = 0
+
+    def __delitem__(self, impl: str) -> None:
+        raise TypeError("launch counts cannot be deleted")
+
+    def __iter__(self):
+        return iter((COOPERATIVE, STREAMING, BLOCKED))
+
+    def __len__(self) -> int:
+        return len(_KIND)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -274,8 +324,8 @@ def launch(
     gamma_max: float = 1e6,
 ) -> torch.Tensor:
     """Launch kernel ``impl`` (``"cuda-cooperative"``, ``"cuda-streaming"``
-    or ``"cuda-blocked"``) on CUDA tensors, on the current stream, and add
-    one to ``two_loop_cuda.LAUNCHES[impl]``. :func:`two_loop_cuda` calls it
+    or ``"cuda-blocked"``) on CUDA tensors, on the current stream; the
+    kernel adds one to ``two_loop_cuda.LAUNCHES[impl]`` on the device. :func:`two_loop_cuda` calls it
     with the dispatch's choice; the dispatch's own measurement calls it with
     each kernel in turn. ``group`` is the streaming kernel's k
     (:func:`group_size`'s when None) and ``prefetch`` the blocked kernel's
@@ -334,6 +384,8 @@ def launch(
         # the kernels read v's n entries in place (zero beyond), 16 bytes at a time
         v_in = (v if v.is_contiguous() and _aligned(v)
                 else v.clone(memory_format=torch.contiguous_format))
+        counts = (None if stamps is not None
+                  else two_loop_cuda.LAUNCHES.counter(v.device)[_KIND[impl]:])
         out = torch.empty(n_pad, dtype=v.dtype, device=v.device)
         partials = torch.empty(2 * _N_PARTIALS * grid, dtype=torch.float32, device=v.device)
         rc = lib.two_loop_launch(
@@ -342,11 +394,10 @@ def launch(
             n_pad, n, m, grid, slice_, smem, int(clamp_gamma), gamma_min, gamma_max,
             torch.cuda.current_stream().cuda_stream,
             None if stamps is None else stamps.data_ptr(),
+            None if counts is None else counts.data_ptr(),
         )
     _check(lib, rc, f"two_loop_launch({impl}, k={k}, prefetch={d}, stamps={stamps is not None})")
-    if stamps is None:
-        two_loop_cuda.LAUNCHES[impl] += 1
     return out[:n]
 
 
-two_loop_cuda.LAUNCHES = {COOPERATIVE: 0, STREAMING: 0, BLOCKED: 0}
+two_loop_cuda.LAUNCHES = LaunchCounts()

@@ -8,14 +8,20 @@ the same trial sequence. The JAX versions are ``lax.while_loop``s that never
 leave the device; here each loop runs on the host and exits early on the
 accept test, which costs exactly one host sync per trial. Every other
 quantity (alpha, the bracket, the interpolation, the accept flag) stays a
-device tensor. The batched Armijo search is not ported.
+device tensor. :func:`armijo_quad_line_search_device` is the Armijo search
+with no host sync at all: a fixed budget of trial slots, each guarded by a
+device flag (:mod:`lbfgs_ffnn_torch.ops.control`), for the captured L-BFGS
+iteration. The batched Armijo search is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from lbfgs_ffnn_torch.ops.control import assign, guard
 
 
 class LineSearchResult(NamedTuple):
@@ -24,7 +30,8 @@ class LineSearchResult(NamedTuple):
     evaluated: bool          # do f_new/g_new correspond to `alpha`?
     f_new: torch.Tensor      # loss at x + alpha*p
     g_new: torch.Tensor      # grad at x + alpha*p
-    n_trials: int = 0        # objective evaluations (= host syncs) performed
+    n_trials: Any = 0        # objective evaluations: an int (= host syncs) in the
+                             # early-exit searches, an int32 tensor in the device form
     carry: Any = ()          # accept-point carry from ``vag_carry_along``
 
 
@@ -160,3 +167,84 @@ def armijo_quad_line_search(
             f_new, g_new = value_and_grad(x + a * p, aux)
     return LineSearchResult(alpha=a, ok=ok, evaluated=True, f_new=f_new,
                             g_new=g_new, n_trials=n_trials, carry=carry)
+
+
+def armijo_quad_line_search_device(
+    value_and_grad: Callable[..., tuple[torch.Tensor, torch.Tensor]],
+    x: torch.Tensor,
+    p: torch.Tensor,
+    f0: torch.Tensor,
+    dg0: torch.Tensor,
+    aux: Any = (),
+    *,
+    c1: float = 1e-4,
+    shrink: float = 0.5,
+    max_iters: int = 20,
+    alpha0: torch.Tensor | float = 1.0,
+    value: Callable[..., torch.Tensor] | None = None,
+    value_along: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    vag_along: Callable[[torch.Tensor], tuple] | None = None,
+    vag_carry_along: Callable[[torch.Tensor], tuple] | None = None,
+) -> LineSearchResult:
+    """:func:`armijo_quad_line_search` with every decision on the device.
+
+    The carry is the JAX search's ``_C`` (``i``, ``alpha_next``,
+    ``alpha_eval``, ``ok``, ``f_new``, and ``g_new`` for fused trials) in
+    device tensors. There are ``max_iters`` trial slots; slot j is
+    ``guard(~ok & (i < max_iters))`` around one trial, which updates the
+    carry with :func:`~lbfgs_ffnn_torch.ops.control.assign`, and slot j + 1
+    sits inside slot j's body. Captured, the slot after acceptance is an IF
+    node that does not fire, and the slots inside it are never reached; run
+    eagerly, every slot computes and its writes are masked. Then comes the one
+    value-and-gradient at ``alpha_eval`` (lean trials): ``vag_carry_along``,
+    else ``vag_along``, else ``value_and_grad``. ``n_trials`` is the device
+    ``i``; the trial sequence and the result are the early-exit search's.
+    """
+    if max_iters < 1:
+        raise ValueError("armijo_quad_line_search_device needs max_iters >= 1")
+    fused = value is None
+    like = dict(dtype=x.dtype, device=x.device)
+    a0 = torch.as_tensor(alpha0, **like).reshape(())
+    i = torch.zeros((), dtype=torch.int32, device=x.device)
+    alpha_next, alpha_eval = a0.clone(), a0.clone()
+    ok = torch.zeros((), dtype=torch.bool, device=x.device)
+    f_new = f0.clone()
+    g_new = torch.zeros_like(x) if fused else None
+    # Slot j + 1 opens inside slot j's body: a search that accepts at trial
+    # j skips one slot, not max_iters - j (captured, a slot that does not
+    # fire costs a few kernels; its nested slots are never reached).
+    with contextlib.ExitStack() as nest:
+        for _ in range(max_iters):
+            live = ~ok & (i < max_iters)
+            nest.enter_context(guard(live))
+            a = alpha_next
+            if fused:
+                f, g = value_and_grad(x + a * p, aux)
+            elif value_along is not None:
+                f = value_along(a)
+            else:
+                f = value(x + a * p, aux)
+            accept = f <= f0 + c1 * a * dg0
+            denom = 2.0 * (f - f0 - dg0 * a)
+            a_quad = -(dg0 * a * a) / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+            quad_ok = (torch.abs(denom) > 1e-20) & (a_quad >= 0.1 * a) & (a_quad <= 0.9 * a)
+            a_next = torch.where(accept, a, torch.where(quad_ok, a_quad, a * shrink))
+            # alpha_eval reads alpha_next, so it is written first
+            assign(live, alpha_eval, a)
+            assign(live, alpha_next, a_next)
+            assign(live, ok, accept)
+            assign(live, f_new, f)
+            if fused:
+                assign(live, g_new, g)
+            assign(live, i, i + 1)
+
+    carry = ()
+    if not fused:
+        if vag_carry_along is not None:
+            f_new, g_new, carry = vag_carry_along(alpha_eval)
+        elif vag_along is not None:
+            f_new, g_new = vag_along(alpha_eval)
+        else:
+            f_new, g_new = value_and_grad(x + alpha_eval * p, aux)
+    return LineSearchResult(alpha=alpha_eval, ok=ok, evaluated=True, f_new=f_new,
+                            g_new=g_new, n_trials=i, carry=carry)

@@ -6,7 +6,8 @@ the columns ``Iteration,Loss,GradNorm,TimeMs`` strided by ``log_interval``
 (loss, gnorm) columns come from the solver's on-device history; TimeMs is
 the measured whole-solve wall time spread uniformly over the iterations, so
 the last row holds the whole solve's time (cumulative, like the reference's
-column). The JAX package's native CSV writer is not ported: this one is
+column), unless the Launcher ran measured chunks (``timed_chunks``): then
+each row holds the measured cumulative time of its chunk. The JAX package's native CSV writer is not ported: this one is
 plain Python and writes the same text.
 """
 

@@ -9,8 +9,8 @@ counted in ``SolveResult.n_host_syncs``. TF32 is off for the solve.
 
 Not ported yet: the Wolfe branch (``momentum == 0`` with
 ``use_line_search=True``, the JAX default) raises ``NotImplementedError``
-(ROADMAP queue 1 item 10; the Wolfe search itself is ported, for L-BFGS);
-``gd_chunked`` is not ported either.
+(ROADMAP queue 1 item 5; the Wolfe search itself is ported, for L-BFGS);
+``gd_chunked`` and GD on the resident driver are ROADMAP queue 1 item 2.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def gradient_descent(
     if opts.momentum <= 0.0 and opts.use_line_search:
         raise NotImplementedError(
             "gradient_descent with the Wolfe line search is not ported yet (ROADMAP queue 1 "
-            "item 10); pass momentum > 0 or use_line_search=False")
+            "item 5); pass momentum > 0 or use_line_search=False")
     with full_f32(), torch.no_grad():
         aux = prepared_aux(problem, aux)
         f, g = problem.value_and_grad(x0, aux)

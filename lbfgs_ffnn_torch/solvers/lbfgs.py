@@ -12,14 +12,25 @@ Counterpart of :mod:`lbfgs_ffnn_tpu.solvers.lbfgs`, both branches:
     (reference: src/cuda/lbfgs.cuh:90-185);
 and the absolute or relative curvature gate in both.
 
-The JAX solve is one ``lax.while_loop``; this one is a host loop with two
-kinds of host sync and no others: the line search's accept test, once per
-trial, and the stop test ``k < max_iters and gnorm >= tol``, once per
-iteration. Directions, ring pushes and resets, alpha and the carried line
-prefix stay on the device. ``SolveResult.n_host_syncs`` counts the syncs.
+Two drivers, as in the JAX package:
+  * **The resident driver** (``"armijo"`` on CUDA tensors, and
+    :func:`lbfgs_chunked`). The iteration is JAX's ``_make_body`` with its
+    state (:class:`_State`) in device tensors and every decision on the
+    device: :func:`_make_resident_body` guards the whole iteration with
+    ``not_done`` and each of the search's trial slots with its own flag
+    (:mod:`lbfgs_ffnn_torch.ops.control`). On CUDA one iteration is
+    captured once into a CUDA graph (conditional nodes for the guards) and
+    replayed in chunks; the host reads the iteration counter and the stop
+    flag once per chunk (:func:`~lbfgs_ffnn_torch.solvers.common.drive_chunks`),
+    the PyTorch form of JAX's bounded ``while_loop`` chunks. On CPU tensors
+    :func:`lbfgs_chunked` runs the same body eagerly, its writes masked.
+  * **The early-exit loop** (``lbfgs`` on CPU tensors, and ``"wolfe"``
+    everywhere): a host loop with two kinds of host sync, the line search's
+    accept test once per trial and the stop test once per iteration.
 
-The solve runs in full float32 on CUDA: TF32 matmuls are switched off for
-its duration (:func:`~lbfgs_ffnn_torch.solvers.common.full_f32`).
+``SolveResult.n_host_syncs`` counts the syncs of either driver. The solve
+runs in full float32 on CUDA: TF32 matmuls are switched off for its
+duration (:func:`~lbfgs_ffnn_torch.solvers.common.full_f32`).
 ``pair_dtype="bfloat16"`` stores the curvature ring in bf16 (half its bytes
 and half the two-loop's history traffic); rho = 1/(y.s) comes from the
 solver-dtype pair before the push narrows it, and the recursion runs in the
@@ -28,21 +39,27 @@ solver dtype.
 Not ported yet (each raises ``NotImplementedError``): the batched Armijo
 search, ``ls_alpha_init="warm"``, HVP curvature pairs, the sharded
 two-loops, pair dtypes other than bfloat16, ``prefix_dtype`` with
-``prefix_refresh``, ``mesh``. ``lbfgs_chunked`` is not ported yet either.
+``prefix_refresh``, ``mesh``, and the Wolfe branch on the resident driver.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import collections
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from lbfgs_ffnn_torch.ops.control import Graph, assign, capture, guard
 from lbfgs_ffnn_torch.ops.cuda_two_loop import two_loop_cuda
-from lbfgs_ffnn_torch.ops.linesearch import armijo_quad_line_search, wolfe_line_search
+from lbfgs_ffnn_torch.ops.linesearch import (
+    armijo_quad_line_search, armijo_quad_line_search_device, wolfe_line_search,
+)
 from lbfgs_ffnn_torch.ops.two_loop import (
     RingState, empty_history_state, ring_push, ring_reset, two_loop, two_loop_compact,
 )
-from lbfgs_ffnn_torch.solvers.common import finalize, full_f32, init_history, record
+from lbfgs_ffnn_torch.solvers.common import (
+    drive_chunks, finalize, full_f32, init_history, record, record_at,
+)
 from lbfgs_ffnn_torch.types import Problem, SolveResult, prepared_aux
 
 
@@ -97,7 +114,9 @@ def _check_options(opts: LBFGSOptions) -> None:
 _PAIR_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
 
-class _State(NamedTuple):
+class _LoopState(NamedTuple):
+    """The early-exit loop's state: counters on the host."""
+
     k: int
     x: torch.Tensor
     f: torch.Tensor
@@ -141,10 +160,10 @@ def _use_prefix(problem: Problem, opts: LBFGSOptions) -> bool:
     return problem.line_prefix is not None and _lean(problem, opts)
 
 
-def _init_state(problem: Problem, opts: LBFGSOptions, x0, aux) -> _State:
+def _init_loop_state(problem: Problem, opts: LBFGSOptions, x0, aux) -> _LoopState:
     f0, g0 = problem.value_and_grad(x0, aux)
     loss_h, gnorm_h = init_history(opts.max_iters, x0.dtype, x0.device)
-    return _State(
+    return _LoopState(
         k=0, x=x0, f=f0, g=g0, gnorm=torch.linalg.norm(g0),
         hist=empty_history_state(opts.m, x0.shape[0], x0.dtype,
                                  pair_dtype=_PAIR_DTYPES[opts.pair_dtype], device=x0.device),
@@ -153,38 +172,73 @@ def _init_state(problem: Problem, opts: LBFGSOptions, x0, aux) -> _State:
     )
 
 
-def _not_done(s: _State, opts: LBFGSOptions) -> bool:
+def _loop_not_done(s: _LoopState, opts: LBFGSOptions) -> bool:
     """The stop test; reading gnorm is one host sync while k < max_iters."""
     return s.k < opts.max_iters and bool(s.gnorm >= opts.tol)
 
 
-def _make_body(problem: Problem, opts: LBFGSOptions):
-    _check_options(opts)
-    two_loop_fn = {"cuda": two_loop_cuda, "compact": two_loop_compact}.get(opts.two_loop_impl,
-                                                                          two_loop)
-    lean = _lean(problem, opts)
-    use_prefix = _use_prefix(problem, opts)
-    # The armijo accept evaluation already computes the post-step prefix
-    # (the MLP's z1 = A + alpha*B); carrying it replaces the prefix axpy.
-    # Wolfe keeps the axpy.
-    carry_mode = (use_prefix and opts.prefix_vag and opts.line_search == "armijo"
-                  and problem.line_prefix.vag_restrict_carry is not None)
+def _carry_mode(problem: Problem, opts: LBFGSOptions) -> bool:
+    """The armijo accept evaluation already computes the post-step prefix
+    (the MLP's z1 = A + alpha*B); carrying it replaces the prefix axpy.
+    Wolfe keeps the axpy."""
+    return (_use_prefix(problem, opts) and opts.prefix_vag and opts.line_search == "armijo"
+            and problem.line_prefix.vag_restrict_carry is not None)
 
-    def make_va(s: _State, p, aux):
-        """(B, value_along, vag_along, vag_carry_along) for direction p."""
+
+def _direction_fn(opts: LBFGSOptions):
+    return {"cuda": two_loop_cuda, "compact": two_loop_compact}.get(opts.two_loop_impl, two_loop)
+
+
+def _make_va(problem: Problem, opts: LBFGSOptions):
+    """``make_va(x, prefix, p, aux) -> (B, value_along, vag_along,
+    vag_carry_along)`` for direction p."""
+    use_prefix = _use_prefix(problem, opts)
+    carry_mode = _carry_mode(problem, opts)
+
+    def make_va(x, prefix, p, aux):
         if use_prefix:
             lp = problem.line_prefix
             B = lp.direction(p, aux)
-            va = lp.restrict(s.prefix, B, s.x, p, aux)
-            vag = (lp.vag_restrict(s.prefix, B, s.x, p, aux)
+            va = lp.restrict(prefix, B, x, p, aux)
+            vag = (lp.vag_restrict(prefix, B, x, p, aux)
                    if opts.prefix_vag and lp.vag_restrict is not None else None)
-            vagc = lp.vag_restrict_carry(s.prefix, B, s.x, p, aux) if carry_mode else None
+            vagc = lp.vag_restrict_carry(prefix, B, x, p, aux) if carry_mode else None
             return B, va, vag, vagc
         if problem.line_fun is not None:
-            return None, problem.line_fun(s.x, p, aux), None, None
+            return None, problem.line_fun(x, p, aux), None, None
         return None, None, None, None
 
-    def armijo(s: _State, p, aux):
+    return make_va
+
+
+def _curvature_pair(opts: LBFGSOptions, g, g_new, alpha, p):
+    """(step, y, rho, accept): the pair and JAX's curvature gate."""
+    step = alpha * p
+    y = g_new - g
+    ys = torch.dot(y, step)
+    if opts.curvature_rel_eps > 0.0:
+        gate = opts.curvature_rel_eps * torch.linalg.norm(y) * torch.linalg.norm(step)
+    else:
+        gate = opts.curvature_eps
+    accept = ys > gate
+    rho = torch.where(accept, 1.0 / torch.where(ys == 0, torch.ones_like(ys), ys),
+                      torch.zeros_like(ys))
+    return step, y, rho, accept
+
+
+def _make_body(problem: Problem, opts: LBFGSOptions):
+    """The early-exit loop's iteration."""
+    _check_options(opts)
+    two_loop_fn = _direction_fn(opts)
+    lean = _lean(problem, opts)
+    use_prefix = _use_prefix(problem, opts)
+    carry_mode = _carry_mode(problem, opts)
+    _make_va_xp = _make_va(problem, opts)
+
+    def make_va(s: _LoopState, p, aux):
+        return _make_va_xp(s.x, s.prefix, p, aux)
+
+    def armijo(s: _LoopState, p, aux):
         dg0 = torch.dot(s.g, p)
         # Steepest-descent fallback + history reset on a non-descent p
         # (reference: src/cuda/lbfgs.cuh:97-104), decided on the device.
@@ -214,7 +268,7 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
         return _Step(p, hist, B, ls.alpha, ls.f_new, ls.g_new, nf_add, ng_add, ls.n_trials,
                      ls.carry)
 
-    def wolfe(s: _State, p, aux):
+    def wolfe(s: _LoopState, p, aux):
         B, va, vag, _ = make_va(s, p, aux)
         if s.k == 0:
             # First-iteration heuristic step, no search
@@ -242,21 +296,12 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
 
     search = armijo if opts.line_search == "armijo" else wolfe
 
-    def body(s: _State, aux) -> _State:
+    def body(s: _LoopState, aux) -> _LoopState:
         p = -two_loop_fn(s.g, s.hist)
         p, hist, B, alpha, f_new, g_new, nf_add, ng_add, trials, carry = search(s, p, aux)
 
         x_new = s.x + alpha * p
-        step = alpha * p
-        y = g_new - s.g
-        ys = torch.dot(y, step)
-        if opts.curvature_rel_eps > 0.0:
-            gate = opts.curvature_rel_eps * torch.linalg.norm(y) * torch.linalg.norm(step)
-        else:
-            gate = opts.curvature_eps
-        accept = ys > gate
-        rho = torch.where(accept, 1.0 / torch.where(ys == 0, torch.ones_like(ys), ys),
-                          torch.zeros_like(ys))
+        step, y, rho, accept = _curvature_pair(opts, s.g, g_new, alpha, p)
         hist = ring_push(hist, step, y, rho, accept)
 
         gnorm_new = torch.linalg.norm(g_new)
@@ -267,13 +312,335 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
             prefix_new = s.prefix + alpha * B
         else:
             prefix_new = s.prefix
-        return _State(
+        return _LoopState(
             k=s.k + 1, x=x_new, f=f_new, g=g_new, gnorm=gnorm_new, hist=hist,
             loss_h=loss_h, gnorm_h=gnorm_h, nf=s.nf + nf_add, ng=s.ng + ng_add,
             prefix=prefix_new, syncs=s.syncs + trials,
         )
 
     return body
+
+
+# ---------------------------------------------------------------------------
+# The resident driver: JAX's state and body on the device
+# ---------------------------------------------------------------------------
+
+
+class _State(NamedTuple):
+    """JAX's solver state (``lbfgs_ffnn_tpu.solvers.lbfgs._State``), every
+    field a device tensor: ``k``, ``nf`` and ``ng`` int32 scalars, the rest
+    in the solver dtype. The resident driver keeps one in static buffers
+    that each iteration updates in place."""
+
+    k: torch.Tensor
+    x: torch.Tensor
+    f: torch.Tensor
+    g: torch.Tensor
+    gnorm: torch.Tensor
+    hist: RingState
+    loss_h: torch.Tensor
+    gnorm_h: torch.Tensor
+    nf: torch.Tensor  # objective (forward) evaluations
+    ng: torch.Tensor  # full-gradient evaluations
+    alpha_prev: torch.Tensor  # the previous iteration's step
+    prefix: Any = ()  # carried LinePrefix state (the MLP's A = x@W1 + b1)
+
+
+def _init_state(problem: Problem, opts: LBFGSOptions, x0, aux) -> _State:
+    f0, g0 = problem.value_and_grad(x0, aux)
+    loss_h, gnorm_h = init_history(opts.max_iters, x0.dtype, x0.device)
+
+    def i32(v):
+        return torch.full((), v, dtype=torch.int32, device=x0.device)
+
+    return _State(
+        k=i32(0), x=x0.clone(), f=f0.clone(), g=g0.clone(), gnorm=torch.linalg.norm(g0),
+        hist=empty_history_state(opts.m, x0.shape[0], x0.dtype,
+                                 pair_dtype=_PAIR_DTYPES[opts.pair_dtype], device=x0.device),
+        loss_h=loss_h, gnorm_h=gnorm_h, nf=i32(1), ng=i32(1),
+        alpha_prev=torch.ones((), dtype=x0.dtype, device=x0.device),
+        prefix=problem.line_prefix.init(x0, aux) if _use_prefix(problem, opts) else (),
+    )
+
+
+def _not_done(s: _State, opts: LBFGSOptions) -> torch.Tensor:
+    """The stop test as a device bool."""
+    return (s.k < opts.max_iters) & (s.gnorm >= opts.tol)
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for item in tree for t in _tensors(item)]
+    return []
+
+
+def _clone(tree):
+    """A copy of a tree of NamedTuples and tuples with every tensor cloned."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple):
+        items = [_clone(t) for t in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def _copy_state(dst: _State, src: _State) -> None:
+    for d, t in zip(_tensors(dst), _tensors(src), strict=True):
+        d.copy_(t)
+
+
+def _make_resident_body(problem: Problem, opts: LBFGSOptions):
+    """``body(s, not_done, aux)``: JAX's Armijo iteration on the device
+    state ``s``, in place, guarded by the device bool ``not_done`` (which it
+    updates). Nothing in it reads a value back to the host: captured into a
+    CUDA graph, the guards are IF nodes; run eagerly, every write is masked
+    by its flag."""
+    _check_options(opts)
+    if opts.line_search != "armijo":
+        raise NotImplementedError(
+            f"the resident driver runs line_search=\"armijo\", got {opts.line_search!r}; the "
+            "Wolfe branch on it is ROADMAP queue 1 item 1 (lbfgs() runs Wolfe in its "
+            "early-exit loop)")
+    two_loop_fn = _direction_fn(opts)
+    lean = _lean(problem, opts)
+    use_prefix = _use_prefix(problem, opts)
+    carry_mode = _carry_mode(problem, opts)
+    make_va = _make_va(problem, opts)
+
+    def body(s: _State, not_done: torch.Tensor, aux) -> None:
+        with guard(not_done):
+            p = -two_loop_fn(s.g, s.hist)
+            dg0 = torch.dot(s.g, p)
+            # Steepest-descent fallback + history reset on a non-descent p
+            # (reference: src/cuda/lbfgs.cuh:97-104).
+            nondescent = dg0 >= 0
+            p = torch.where(nondescent, -s.g, p)
+            dg0 = torch.where(nondescent, -torch.dot(s.g, s.g), dg0)
+            hist = ring_reset(s.hist, nondescent)
+            one = torch.ones_like(s.gnorm)
+            alpha0 = torch.where(s.k == 0, torch.minimum(one, 1.0 / s.gnorm), one)
+            B, va, vag, vagc = make_va(s.x, s.prefix, p, aux)
+            ls = armijo_quad_line_search_device(
+                problem.value_and_grad, s.x, p, s.f, dg0, aux,
+                c1=opts.c1, shrink=opts.ls_shrink, max_iters=opts.ls_max_iters,
+                alpha0=alpha0,
+                value=problem.fun if lean else None,
+                value_along=va if lean else None,
+                vag_along=vag if lean else None,
+                vag_carry_along=vagc if lean else None,
+            )
+            # History reset on line-search failure (cuda/lbfgs.cuh:147).
+            hist = ring_reset(hist, ~ls.ok)
+            alpha, f_new, g_new = ls.alpha, ls.f_new, ls.g_new
+            x_new = s.x + alpha * p
+            step, y, rho, accept = _curvature_pair(opts, s.g, g_new, alpha, p)
+            hist = ring_push(hist, step, y, rho, accept & not_done)  # rows in place
+            gnorm_new = torch.linalg.norm(g_new)
+            record_at(not_done, s.loss_h, s.gnorm_h, s.k, f_new, gnorm_new)
+            if carry_mode:
+                prefix_new = ls.carry
+            elif use_prefix:  # the prefix is linear in w: P += alpha * B
+                prefix_new = s.prefix + alpha * B
+            else:
+                prefix_new = s.prefix
+            if lean:  # value-only trials + one value-and-gradient
+                nf_new, ng_new = s.nf + ls.n_trials + 1, s.ng + 1
+            else:     # each trial is a fused value-and-gradient
+                nf_new, ng_new = s.nf + ls.n_trials, s.ng + ls.n_trials
+            k_new = s.k + 1
+            not_done_new = (k_new < opts.max_iters) & (gnorm_new >= opts.tol)
+            # every new value is computed; now the state moves
+            for dst, new in ((s.x, x_new), (s.f, f_new), (s.g, g_new), (s.gnorm, gnorm_new),
+                             (s.hist.head, hist.head), (s.hist.count, hist.count),
+                             (s.nf, nf_new), (s.ng, ng_new), (s.alpha_prev, alpha),
+                             (s.k, k_new)):
+                assign(not_done, dst, new)
+            if use_prefix:
+                for dst, new in zip(_tensors(s.prefix), _tensors(prefix_new), strict=True):
+                    assign(not_done, dst, new)
+            assign(not_done, not_done, not_done_new)
+
+    return body
+
+
+RESIDENT_CHUNK = 10  # iterations between the host's reads when lbfgs() runs the resident driver
+_GRAPH_CACHE_SIZE = 8  # captured iterations kept; each holds a memory pool
+
+
+class _Resident:
+    """One problem's static device state, its iteration body and, on CUDA,
+    that iteration captured into a CUDA graph. Each capture first runs the
+    body once eagerly on a copy of the state (``captures`` counts them: a
+    launch count on the card sees that direction too)."""
+
+    captures = 0
+
+    def __init__(self, problem: Problem, opts: LBFGSOptions, x0: torch.Tensor, aux,
+                 capture: bool):
+        self.opts = opts
+        self.aux = aux
+        self.body = _make_resident_body(problem, opts)
+        self.state = _init_state(problem, opts, x0, aux)
+        self.not_done = _not_done(self.state, opts)
+        self.graph = None
+        self.syncs = 0
+        if capture:
+            self._capture()
+
+    def _capture(self) -> None:
+        # An eager run of the body on a copy of the state first, on a side
+        # stream: cuBLAS, the allocator and the kernels' launch
+        # configurations are set up before capture.
+        warm = _clone(self.state)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.body(warm, self.not_done.clone(), self.aux)
+        torch.cuda.current_stream().wait_stream(side)
+        _Resident.captures += 1
+        # The capture mode ("global") raises on any host sync. A flat
+        # capture first (no IF nodes, never replayed) is where a sync in the
+        # body raises: inside an IF node's body it could not be unwound.
+        with capture(Graph(flat=True)):
+            self.body(warm, self.not_done.clone(), self.aux)
+        del warm
+        self.graph = Graph()
+        with capture(self.graph):
+            self.body(self.state, self.not_done, self.aux)
+
+    def load(self, src: _State) -> None:
+        _copy_state(self.state, src)
+        self.not_done.copy_(_not_done(self.state, self.opts))
+        self.syncs = 0
+
+    def step(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self.body(self.state, self.not_done, self.aux)
+
+
+class _Snapshot:
+    """``(k, nf, ng, not_done)`` copied to the host behind a chunk; the
+    first read waits for it, the chunk's one host sync."""
+
+    def __init__(self, r: _Resident, known: Optional[tuple] = None):
+        self._r, self._values = r, known
+        if known is not None:
+            return
+        s = r.state
+        packed = torch.stack([s.k, s.nf, s.ng, r.not_done.to(torch.int32)])
+        if packed.is_cuda:
+            self._host = torch.empty(4, dtype=torch.int32, pin_memory=True)
+            self._host.copy_(packed, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = packed, None
+
+    def values(self) -> tuple[int, int, int, bool]:
+        if self._values is None:
+            if self._event is not None:
+                self._event.synchronize()
+            k, nf, ng, not_done = self._host.tolist()
+            self._values = (k, nf, ng, bool(not_done))
+            self._r.syncs += 1
+        return self._values
+
+
+_GRAPHS: "collections.OrderedDict[tuple, _Resident]" = collections.OrderedDict()
+
+
+def _aux_key(aux) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.device) for t in _tensors(aux))
+
+
+def _resident(problem: Problem, opts: LBFGSOptions, x0: torch.Tensor, aux,
+              capture: bool) -> _Resident:
+    """A captured iteration from the cache (keyed by the problem, the
+    options, x0's shape and the data tensors' storage, which the graph
+    reads at fixed addresses; the entry keeps them alive), else a new one;
+    an uncaptured one is never cached."""
+    if not capture:
+        return _Resident(problem, opts, x0, aux, capture=False)
+    key = (problem, opts, tuple(x0.shape), x0.dtype, x0.device, _aux_key(aux))
+    if key in _GRAPHS:
+        _GRAPHS.move_to_end(key)
+        return _GRAPHS[key]
+    while len(_GRAPHS) >= _GRAPH_CACHE_SIZE:
+        _GRAPHS.popitem(last=False)
+    _GRAPHS[key] = _Resident(problem, opts, x0, aux, capture=True)
+    return _GRAPHS[key]
+
+
+def clear_graph_cache() -> None:
+    """Drop every captured iteration (and the memory pools they hold)."""
+    _GRAPHS.clear()
+
+
+def _solve_resident(problem: Problem, x0: Optional[torch.Tensor], aux, opts: LBFGSOptions, *,
+                    chunk: int, capture: bool, callback=None, resume_state=None,
+                    pipeline: bool = True, iters: Optional[int] = None):
+    """The resident driver: ``chunk`` iterations per host read, captured
+    (``capture``, CUDA only) or run eagerly with masked writes. ``iters``
+    stops the host loop earlier than ``max_iters`` (a warm-up that captures
+    the graph of the full solve). Returns ``(result, time_ms)``."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    if resume_state is None and x0 is None:
+        raise ValueError("x0 is required unless resume_state is given")
+    like = x0 if x0 is not None else resume_state.x
+    if capture and not like.is_cuda:
+        raise ValueError(f"a captured solve needs CUDA tensors, got {like.device}")
+    with full_f32(), torch.no_grad():
+        aux = prepared_aux(problem, aux)
+        r = _resident(problem, opts, like, aux, capture)
+        if resume_state is None:
+            r.load(_init_state(problem, opts, x0, aux))
+            first = _Snapshot(r, known=(0, 1, 1, True))
+        else:
+            r.load(resume_state)
+            if _use_prefix(problem, opts):
+                # a derived field: recomputed from the restored iterate, never trusted
+                for dst, new in zip(_tensors(r.state.prefix),
+                                    _tensors(problem.line_prefix.init(r.state.x, aux)),
+                                    strict=True):
+                    dst.copy_(new)
+            first = _Snapshot(r)
+
+        def run_chunk(_snap):
+            for _ in range(chunk):
+                r.step()
+            return _Snapshot(r)
+
+        cb = None
+        if callback is not None:
+            def cb(_snap, elapsed):
+                callback(r.state, elapsed)
+
+        last, time_ms = drive_chunks(
+            run_chunk, first, (), opts.max_iters if iters is None else iters,
+            counter=lambda snap: snap.values()[0],
+            done=lambda snap: not snap.values()[3],
+            callback=cb, pipeline=pipeline,
+        )
+        k, nf, ng, _ = last.values()
+        s = r.state
+        res = finalize(s.x.clone(), k, s.gnorm < opts.tol, s.f.clone(), s.gnorm.clone(),
+                       s.loss_h.clone(), s.gnorm_h.clone(), n_fevals=nf, n_gevals=ng,
+                       n_host_syncs=r.syncs)
+    return res, time_ms
+
+
+def _lbfgs_resident_eager(problem: Problem, x0: torch.Tensor, aux: Any = (),
+                          opts: LBFGSOptions | None = None,
+                          chunk: int = RESIDENT_CHUNK) -> SolveResult:
+    """The resident body run eagerly (masked writes, nothing captured) on
+    any device: what the captured solve is held against."""
+    return _solve_resident(problem, x0, aux, opts or LBFGSOptions(line_search="armijo"),
+                           chunk=chunk, capture=False)[0]
 
 
 def lbfgs(
@@ -283,18 +650,68 @@ def lbfgs(
     opts: LBFGSOptions | None = None,
     mesh=None,
 ) -> SolveResult:
-    """Run L-BFGS from ``x0`` on its device; ``aux`` lives there too."""
+    """Run L-BFGS from ``x0`` on its device; ``aux`` lives there too. CUDA
+    tensors under ``line_search="armijo"`` run the resident driver (the
+    iteration replayed as a CUDA graph, :data:`RESIDENT_CHUNK` iterations
+    per host read); everything else runs the early-exit loop."""
     opts = opts or LBFGSOptions()
     if mesh is not None:
-        raise NotImplementedError("lbfgs(mesh=...) is not ported yet")
+        raise NotImplementedError("lbfgs(mesh=...) is not ported yet (ROADMAP queue 1 item 11)")
+    if x0.is_cuda and opts.line_search == "armijo":
+        return _solve_resident(problem, x0, aux, opts, chunk=RESIDENT_CHUNK, capture=True)[0]
+    return _lbfgs_loop(problem, x0, aux, opts)
+
+
+def _lbfgs_loop(problem: Problem, x0: torch.Tensor, aux: Any = (),
+                opts: LBFGSOptions | None = None) -> SolveResult:
+    """The early-exit loop on any device: what ``lbfgs`` runs on CPU
+    tensors and under Wolfe, and the reference the resident driver is held
+    against on the card."""
+    opts = opts or LBFGSOptions()
     body = _make_body(problem, opts)
     with full_f32(), torch.no_grad():
         aux = prepared_aux(problem, aux)
-        s = _init_state(problem, opts, x0, aux)
-        while _not_done(s, opts):
+        s = _init_loop_state(problem, opts, x0, aux)
+        while _loop_not_done(s, opts):
             s = body(s, aux)
     # One stop test per iteration, plus the final one when tol (not
     # max_iters) ended the solve.
     syncs = s.syncs + s.k + int(s.k < opts.max_iters)
     return finalize(s.x, s.k, s.gnorm < opts.tol, s.f, s.gnorm, s.loss_h, s.gnorm_h,
                     n_fevals=s.nf, n_gevals=s.ng, n_host_syncs=syncs)
+
+
+def lbfgs_chunked(
+    problem: Problem,
+    x0: Optional[torch.Tensor],
+    aux: Any = (),
+    opts: LBFGSOptions | None = None,
+    chunk: int = 10,
+    callback: Optional[Callable[[_State, float], None]] = None,
+    resume_state: Optional[_State] = None,
+    mesh=None,
+):
+    """Run L-BFGS (``line_search="armijo"``) in ``chunk``-iteration pieces
+    on the resident driver: on CUDA the captured iteration replayed, on the
+    CPU the same body run eagerly.
+
+    Returns ``(result, time_ms)``: ``time_ms[i]`` is the measured cumulative
+    wall time (host clock, host numpy) after iteration ``i``, at chunk
+    granularity, callback time excluded; NaN for iterations before a
+    resume. Chunk c+1 is enqueued before the host waits for chunk c's
+    counter, so at most one speculative chunk runs past the stop, a no-op on
+    the device. ``callback(state, elapsed_s)`` runs after each chunk with
+    the live :class:`_State` (static buffers: clone what you keep; on the
+    card its reads are ordered after the chunk already enqueued, whose own
+    ``k`` says how far it is). ``resume_state`` continues from such a
+    state; the carried prefix is recomputed from its iterate. ``x0`` may
+    then be None.
+    """
+    opts = opts or LBFGSOptions(line_search="armijo")
+    if mesh is not None:
+        raise NotImplementedError("lbfgs_chunked(mesh=...) is not ported yet "
+                                  "(ROADMAP queue 1 item 11)")
+    like = x0 if x0 is not None else (resume_state.x if resume_state is not None else None)
+    capture = like is not None and like.is_cuda
+    return _solve_resident(problem, x0, aux, opts, chunk=chunk, capture=capture,
+                           callback=callback, resume_state=resume_state)

@@ -2,7 +2,10 @@
 on the card; K1 also against the compact form it computes
 (two_loop_compact), K2 at each of its group sizes also against the grouped
 algebra it computes (two_loop_grouped), K3 at each of several L2 prefetch
-distances.
+distances. Then the resident L-BFGS solve: a guarded kernel call in a
+replayed CUDA graph, the captured solve bitwise equal to the resident body
+run eagerly, its host syncs, and the kernels' launches counted on the
+device.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -320,3 +323,176 @@ def test_kernels_read_v_in_place(cuda, impl):
         ref = two_loop(v.contiguous(), hist)
         assert r_k.shape == (n,)
         assert float((r_k - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+# -- the resident solve: conditional nodes, capture, device-side launch counts
+
+
+@pytest.mark.cuda
+def test_conditional_nodes_supported(cuda):
+    from lbfgs_ffnn_torch.ops.control import conditional_nodes_supported
+
+    ok, why = conditional_nodes_supported()
+    assert ok, why
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", [True, False])
+def test_guarded_kernel_in_a_replayed_graph(cuda, first):
+    """K1 under guard(flag) in a captured graph: each replay launches it
+    (counted on the device) and writes its result where the flag is true,
+    and neither where it is false; the flag is read at replay, not at
+    capture."""
+    from lbfgs_ffnn_torch.ops.control import Graph, assign, capture, guard
+
+    n = 101770
+    hist = _ring(10, n, 13, cuda)
+    v = torch.tensor(np.random.default_rng(3).normal(size=n), dtype=torch.float32, device=cuda)
+    want = two_loop_cuda(v, hist)  # eager first: the launch configuration and the counters
+    out = torch.zeros(n, dtype=torch.float32, device=cuda)
+    flag = torch.tensor(first, device=cuda)
+    graph = Graph()
+    with capture(graph):
+        with guard(flag):
+            assign(flag, out, two_loop_cuda(v, hist))
+    for value in (first, not first):
+        flag.fill_(value)
+        out.zero_()
+        two_loop_cuda.LAUNCHES[COOPERATIVE] = 0
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert two_loop_cuda.LAUNCHES[COOPERATIVE] == (2 if value else 0)
+        assert torch.equal(out, want) if value else not bool(out.any())
+
+
+def _mlp_case(dims, n_samples, dev, seed=0):
+    from lbfgs_ffnn_torch.objectives.mlp import mlp_problem, mlp_spec
+
+    acts = ["relu"] * (len(dims) - 2) + ["linear"]
+    spec = mlp_spec(dims, acts)
+    rng = np.random.default_rng(seed)
+    w0 = torch.tensor(rng.normal(size=spec.n_params) * 0.1, dtype=torch.float32, device=dev)
+    x = torch.tensor(rng.random((n_samples, dims[0])), dtype=torch.float32, device=dev)
+    y = torch.tensor(np.eye(dims[-1])[rng.integers(0, dims[-1], n_samples)],
+                     dtype=torch.float32, device=dev)
+    return mlp_problem(spec), w0, (x, y)
+
+
+# (dims, m, the kernel the dispatch gives the ring, pair dtype)
+_RESIDENT_CASES = {
+    "mlp-k1": ([784, 32, 10], 10, COOPERATIVE, None),
+    "mlp-k1-bf16": ([784, 32, 10], 10, COOPERATIVE, "bfloat16"),
+    "deep-k2": ([784, 64, 32, 10], 20, STREAMING, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_RESIDENT_CASES))
+@pytest.mark.parametrize("iters", [23, 40])
+def test_captured_solve_equals_eager_resident_body(cuda, case, iters):
+    """lbfgs() on CUDA tensors under Armijo replays a captured iteration:
+    bitwise equal to the resident body run eagerly (the same kernels in the
+    same order), the same counters, at most ceil(iters / chunk) + 2 host
+    syncs, and the two-loop kernel launched once per direction, counted on
+    the device across replays."""
+    from lbfgs_ffnn_torch.solvers.lbfgs import (
+        RESIDENT_CHUNK, LBFGSOptions, _lbfgs_resident_eager, clear_graph_cache, lbfgs,
+    )
+
+    dims, m, impl, pair_dtype = _RESIDENT_CASES[case]
+    problem, w0, aux = _mlp_case(dims, 2048, cuda)
+    opts = LBFGSOptions(max_iters=iters, tol=1e-12, m=m, line_search="armijo", ls_max_iters=20,
+                        pair_dtype=pair_dtype)
+    eager = _lbfgs_resident_eager(problem, w0, aux, opts)
+    lbfgs(problem, w0, aux, opts)  # captures the iteration
+    for kind in two_loop_cuda.LAUNCHES:
+        two_loop_cuda.LAUNCHES[kind] = 0
+    res = lbfgs(problem, w0, aux, opts)
+    launches = dict(two_loop_cuda.LAUNCHES)
+    clear_graph_cache()
+    assert res.n_iters == eager.n_iters == iters
+    assert (res.n_fevals, res.n_gevals) == (eager.n_fevals, eager.n_gevals)
+    assert torch.equal(res.x, eager.x)
+    assert torch.equal(res.loss_history, eager.loss_history)
+    assert torch.equal(res.gnorm_history, eager.gnorm_history)
+    assert res.n_host_syncs <= -(-iters // RESIDENT_CHUNK) + 2
+    assert launches == {k: (iters if k == impl else 0) for k in launches}
+    assert float(res.final_loss) < float(problem.fun(w0, aux))
+
+
+@pytest.mark.cuda
+def test_captured_solve_stops_on_tol_mid_chunk(cuda):
+    """A tol reached inside a chunk stops the solve there: the replays past
+    it are no-ops on the device (no launch, no write)."""
+    from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, clear_graph_cache, lbfgs
+
+    problem, w0, aux = _mlp_case([784, 32, 10], 2048, cuda)
+    opts = LBFGSOptions(max_iters=60, tol=1e-12, m=10, line_search="armijo", ls_max_iters=20)
+    full = lbfgs(problem, w0, aux, opts)
+    gn = full.gnorm_history.double().cpu().numpy()
+    # the first new minimum of |g| from iteration 20 on that ends no chunk
+    j = next(j for j in range(20, 60)
+             if (j + 1) % 10 and gn[j] * (1 + 1e-6) < gn[:j].min())
+    tol, stop = float(gn[j]) * (1 + 1e-6), j + 1
+    lbfgs(problem, w0, aux, opts._replace(tol=tol))
+    for kind in two_loop_cuda.LAUNCHES:
+        two_loop_cuda.LAUNCHES[kind] = 0
+    res = lbfgs(problem, w0, aux, opts._replace(tol=tol))
+    launches = two_loop_cuda.LAUNCHES[COOPERATIVE]
+    clear_graph_cache()
+    assert bool(res.converged) and res.n_iters == stop
+    assert launches == stop
+    assert torch.equal(res.loss_history[:stop], full.loss_history[:stop])
+    assert bool(torch.isnan(res.loss_history[stop:]).all())
+
+
+@pytest.mark.cuda
+def test_capture_raises_on_a_host_sync(cuda):
+    """The capture runs in the mode that raises on any host sync: an
+    objective that reads a value back cannot be captured (its trial sits
+    in a guarded body, so the failure travels out through the enclosing
+    captures), and the process carries on."""
+    from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, clear_graph_cache, lbfgs
+    from lbfgs_ffnn_torch.types import make_problem
+
+    def fun(w, aux=()):
+        return torch.sum(w * w) * float(w.abs().max() < 1e9)  # float() syncs
+
+    w0 = torch.ones(64, device=cuda)
+    problem = make_problem(fun, grad=lambda w, aux=(): 2.0 * w)
+    with pytest.raises(Exception, match="captur"):
+        lbfgs(problem, w0, (), LBFGSOptions(max_iters=5, line_search="armijo"))
+    clear_graph_cache()
+    torch.cuda.synchronize()
+    res = lbfgs(make_problem(lambda w, aux=(): torch.sum(w * w), lambda w, aux=(): 2.0 * w),
+                w0, (), LBFGSOptions(max_iters=5, line_search="armijo"))
+    assert float(res.final_loss) < 64.0
+    clear_graph_cache()
+
+
+@pytest.mark.cuda
+def test_launcher_timed_chunks_on_card(cuda, tmp_path):
+    """UnifiedConfig(timed_chunks=K) on the card: lbfgs_chunked replays the
+    captured iteration, TimeMs is measured per chunk, and the solve equals
+    the Launcher's plain timed solve of the same weights bitwise."""
+    from lbfgs_ffnn_torch.data.datasets import Dataset
+    from lbfgs_ffnn_torch.launcher import Launcher, UnifiedConfig
+    from lbfgs_ffnn_torch.recorder import read_history_csv
+    from lbfgs_ffnn_torch.solvers.lbfgs import clear_graph_cache
+
+    rng = np.random.default_rng(6)
+    x = rng.random((1024, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 1024)]
+    launcher = (Launcher("cuda", out_dir=tmp_path).add_layer(784, 32, "relu")
+                .add_layer(32, 10, "linear").build_network().set_data(Dataset(x, y, x, y)))
+    reports = {k: launcher.train("lbfgs", UnifiedConfig(name=f"T{k}", max_iters=23, m_param=10,
+                                                        tolerance=1e-12, log_interval=1,
+                                                        timed_chunks=k),
+                                 verbose=False)
+               for k in (0, 5)}
+    clear_graph_cache()
+    h = read_history_csv(reports[5].csv_path)
+    assert h.n == 23 and len(np.unique(h.time_ms)) == 5 and np.all(np.diff(h.time_ms) >= 0)
+    assert torch.equal(reports[0].result.x, reports[5].result.x)
+    assert reports[5].result.n_host_syncs <= -(-23 // 5) + 2

@@ -102,7 +102,7 @@ def test_launcher_runs_on_cuda_unless_told_otherwise():
 
 @pytest.mark.parametrize("solver,kw", [
     ("sgd", {}), ("slbfgs", {}),
-    ("lbfgs", {"timed_chunks": 10}), ("lbfgs", {"compute_dtype": "bfloat16"}),
+    ("gd", {"timed_chunks": 10}), ("lbfgs", {"compute_dtype": "bfloat16"}),
     ("lbfgs", {"prefix_dtype": "bfloat16"}), ("lbfgs", {"grad_input_dtype": "bfloat16"}),
     ("lbfgs", {"line_input_dtype": "uint8"}), ("gd", {"fun_input_dtype": "uint8"}),
     ("lbfgs", {"ls_alpha_init": "warm"}), ("lbfgs", {"line_search": "wolfe"}),
@@ -156,7 +156,7 @@ def test_runner_main_deep_on_cpu(fashion_root, capsys):
     names = [cfg.name for _, cfg, _ in done]
     assert names == ["FASHION_GD", "FASHION_LBFGS_m10", "FASHION_LBFGS_m100",
                      "FASHION_LBFGS_m10_bf16ring", "FASHION_LBFGS_m100_bf16ring"]
-    assert "FASHION_SGD (SGD, ROADMAP queue 1 item 12)" in capsys.readouterr().out
+    assert "FASHION_SGD (SGD, ROADMAP queue 1 item 7)" in capsys.readouterr().out
     for solver, cfg, rep in done:
         assert rep.result.n_iters == 4 and bool(torch.isfinite(rep.result.final_loss))
         assert (out / f"{cfg.name}_history.csv").read_text().startswith(
@@ -173,7 +173,7 @@ def test_runner_filters_and_styles(fashion_root, capsys):
         ("lbfgs", "FASHION_LBFGS_m10", "plain"), ("lbfgs", "FASHION_LBFGS_m100", "plain")]
     done = run_mnist.main(base + ["--style", "cpu"])
     assert [c.name for _, c, _ in done] == ["FASHION_Unified_GD"]
-    assert ("FASHION_LBFGS (Wolfe L-BFGS through the Launcher, ROADMAP queue 1 item 10)"
+    assert ("FASHION_LBFGS (Wolfe L-BFGS through the Launcher, ROADMAP queue 1 item 5)"
             in capsys.readouterr().out)
     with pytest.raises(SystemExit):
         run_mnist.main(base + ["--only", "nothing-matches"])
