@@ -74,13 +74,29 @@ Phases, each printing its lines (any failure raises and exits non-zero):
  11. bench    - python -m lbfgs_ffnn_torch.experiments.bench in a process of
                 its own (the 1000-iteration headline, its supplementary rows
                 on stderr); its one stdout line must be the contract JSON
- 12. result   - one JSON line with the three kernels' numbers (K2's with its
+ 12. stochastic - S-LBFGS at the bench row's configuration (the first 5,000
+                samples, b=256, b_H=128, M=10, L=10, lam 1e-4, step 0.02)
+                on the 784-128-10 net: the captured solve (each epoch
+                replayed from its CUDA graphs: start, segment, finish)
+                equals the epoch's bodies run eagerly on the card bitwise after 5 epochs (anchor, ring, u_prev,
+                has_u, loss history) and over 30; K1 (gamma clamp) runs
+                30 epochs x 19 inner steps times, counted on the device;
+                the first 3 epochs' losses equal the plain two-loop's to
+                rtol 1e-4 and the final loss is within 2%; host syncs <=
+                ceil(30 / 10) + 2; ms/epoch captured and eager, the capture
+                time and peak memory; the bf16 ring's final loss against
+                f32 (a reading); then the Launcher's S-LBFGS on all 60,000
+                samples at its defaults (b=128, 468 inner steps), 3
+                epochs, with the time of its capture. --profile adds the
+                device idle share and K1's device us per call on this path
+ 13. result   - one JSON line with the three kernels' numbers (K1's launches
+                summed over its two paths, each also by path; K2's with its
                 group size, K3's with its prefetch distance and its time at
                 each distance), then the last line {"ok": true, "device": {...}}
 
-The Armijo solves of phases 7-10 run on the resident driver; their host
-syncs are held to ceil(iters / chunk) + 2, and every launch count is read
-from the kernels' counters on the device.
+The Armijo solves of phases 7-10 and the S-LBFGS solves of phase 12 run on
+the resident driver; their host syncs are held to ceil(iters / chunk) + 2,
+and every launch count is read from the kernels' counters on the device.
 
 --profile adds torch.profiler readings: each kernel's device time per call
 in the dispatch table, and the device time by kernel of 10 MNIST iterations,
@@ -121,6 +137,9 @@ DEEP_ITERS = 120
 DEEP_SEEDS = 8  # init seeds of the deep L-BFGS solves: the runner's 123, then 124-130
 LARGE_ITERS = 120
 SEED = 123
+SL_N, SL_B, SL_BH, SL_L = 5_000, 256, 128, 10  # the port bench's S-LBFGS row
+SL_EPOCHS = 30
+LAUNCHER_EPOCHS = 3  # the Launcher's S-LBFGS on all N_TRAIN samples
 KERNEL_REL_TOL = 1e-4  # max|kernel - plain| / max|plain|, f32 reduction order
 ERR_RATIO = 2.0        # kernel's f64-referenced error vs the plain f32 one's
 LOSS_GATE = 0.02       # final losses within 2% (the bench's quality gate)
@@ -590,7 +609,8 @@ def solve_phase(torch, dev, profile: bool, mnist_root):
         f"first 5 losses agree to rtol 1e-4; final {lc:.6g} vs plain {lp:.6g} "
         f"({abs(lc - lp) / lp * 100:.3f}% apart, limit 2%)")
     if profile:
-        _profile(torch, problem, w0, aux, opts["cuda"]._replace(max_iters=10))
+        o10 = opts["cuda"]._replace(max_iters=10)
+        _profile(torch, lambda: lbfgs(problem, w0, aux, o10))
     return launches[COOPERATIVE], ms_iter
 
 
@@ -726,7 +746,7 @@ def resident_phase(torch, dev, profile: bool, mnist_root):
         f"(graph replay {slot_ms[0] * 1e3:.2f} us bare, {slot_ms[20] * 1e3:.2f} us with 20 "
         "such slots)")
     if profile:
-        _profile(torch, problem, w0, aux, opts)
+        _profile(torch, lambda: sl.lbfgs(problem, w0, aux, opts))
     sl.clear_graph_cache()
     return launches[COOPERATIVE], ms_iter, rc
 
@@ -744,9 +764,9 @@ def deep_phase(torch, profile: bool):
     from lbfgs_ffnn_torch.ops.cuda_two_loop import (
         COOPERATIVE, STREAMING, group_size, two_loop_cuda,
     )
+    from lbfgs_ffnn_torch.solvers.common import Resident
     from lbfgs_ffnn_torch.solvers.lbfgs import RESIDENT_CHUNK, clear_graph_cache
 
-    sl = sys.modules["lbfgs_ffnn_torch.solvers.lbfgs"]
     n_pad = -(-_n_params(DEEP_DIMS) // 128) * 128
     groups = {name: group_size(n_pad, M_DEEP, pb) for name, pb in (("f32", 4), ("bf16", 2))}
     with tempfile.TemporaryDirectory() as tmp:
@@ -763,11 +783,11 @@ def deep_phase(torch, profile: bool):
         for _, cfg, report in run_mnist.main(base + ["--only", "FASHION_GD"]):
             runs["gd"] = (cfg, report)
         _reset(two_loop_cuda.LAUNCHES)
-        captures = sl._Resident.captures
+        captures = Resident.captures
         kernel_runs = run_mnist.main(base + ["--bf16-ring", "--only", "m100"])
         launches = dict(two_loop_cuda.LAUNCHES)
         # each capture runs the body once eagerly first: one direction more
-        captures = sl._Resident.captures - captures
+        captures = Resident.captures - captures
         for _, cfg, report in kernel_runs:
             runs["bf16" if cfg.pair_dtype else "f32"] = (cfg, report)
         for _, cfg, report in run_mnist.main(
@@ -815,12 +835,12 @@ def deep_phase(torch, profile: bool):
             for key, results in solves.items():
                 cfg = dataclasses.replace(runs[key][0], seed=runs[key][0].seed + s,
                                           write_csv=False)
-                c0 = sl._Resident.captures  # this Launcher's problem captures anew
+                c0 = Resident.captures  # this Launcher's problem captures anew
                 rep = launcher.train("lbfgs", cfg, verbose=False)
                 results.append(rep.result)
                 if not key.startswith("plain"):
                     seed_directions += (rep.result.n_iters + rep.warmup_iters
-                                        + sl._Resident.captures - c0)
+                                        + Resident.captures - c0)
         seed_launches = dict(two_loop_cuda.LAUNCHES)
         check(seed_launches[STREAMING] == seed_directions and seed_launches[COOPERATIVE] == 0,
               f"seed runs: launches {seed_launches} != {seed_directions} directions through K2")
@@ -876,7 +896,7 @@ def _profile_deep(torch, root, cfg):
     """The deep f32 L-BFGS solve of the runner, rebuilt from its parts."""
     from lbfgs_ffnn_torch.data.datasets import load_fashion_mnist
     from lbfgs_ffnn_torch.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-    from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions
+    from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, lbfgs
 
     ds = load_fashion_mnist(root, train_size=N_TRAIN, test_size=0)
     dev = torch.device("cuda")
@@ -886,14 +906,17 @@ def _profile_deep(torch, root, cfg):
                   bias_init="zeros", device=dev)
     opts = LBFGSOptions(max_iters=cfg.max_iters, tol=cfg.tolerance, m=cfg.m_param,
                         line_search="armijo", ls_max_iters=20)
-    _profile(torch, mlp_problem(spec), w0, aux, opts)
+    problem = mlp_problem(spec)
+    _profile(torch, lambda: lbfgs(problem, w0, aux, opts))
 
 
-def _profile(torch, problem, w0, aux, opts):
+def _profile(torch, solve, unit="iter"):
+    """Trace ``solve()`` (a whole solve returning a SolveResult) with
+    torch.profiler beside two unprofiled runs of it; prints the device busy
+    time, the two-loop kernel's share and the device idle share per
+    ``unit``. Returns (busy us, two-loop us, steps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from lbfgs_ffnn_torch.solvers.lbfgs import lbfgs
 
     def wall_us(fn):
         torch.cuda.synchronize()
@@ -903,10 +926,10 @@ def _profile(torch, problem, w0, aux, opts):
         return (time.perf_counter() - t0) * 1e6, res
 
     # the same solve unprofiled, before and after the traced one
-    bare = [wall_us(lambda: lbfgs(problem, w0, aux, opts))[0]]
+    bare = [wall_us(solve)[0]]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced_us, res = wall_us(lambda: lbfgs(problem, w0, aux, opts))
-    bare.append(wall_us(lambda: lbfgs(problem, w0, aux, opts))[0])
+        traced_us, res = wall_us(solve)
+    bare.append(wall_us(solve)[0])
     # device-side rows only (kernels, copies); the op rows repeat their time
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
@@ -916,15 +939,16 @@ def _profile(torch, problem, w0, aux, opts):
     k = res.n_iters
     # The busy total holds for a solve replayed from a CUDA graph, but the
     # profiler has given replayed kernels other kernels' names (PERF.md §7).
-    say("profile", f"{k} iters: device busy {busy / k:.1f} us/iter (traced), the two-loop "
-        f"kernel {two_loop_us / k:.1f} us/iter of it ({two_loop_us / busy * 100:.1f}%; kernel "
+    say("profile", f"{k} {unit}s: device busy {busy / k:.1f} us/{unit} (traced), the two-loop "
+        f"kernel {two_loop_us / k:.1f} us/{unit} of it ({two_loop_us / busy * 100:.1f}%; kernel "
         f"names under graph replay are not reliable); wall "
-        f"{traced_us / k:.1f} us/iter traced, {[round(b / k, 1) for b in bare]} us/iter "
+        f"{traced_us / k:.1f} us/{unit} traced, {[round(b / k, 1) for b in bare]} us/{unit} "
         f"unprofiled (same solve, this run); device idle {100 - busy / min(bare) * 100:.1f}% "
         f"of the faster unprofiled wall, {100 - busy / traced_us * 100:.1f}% of the traced wall")
     for e in events[:12]:
-        say("profile", f"  {e.self_device_time_total / res.n_iters:9.1f} us/iter "
-            f"{e.count / res.n_iters:6.1f} calls/iter  {e.key[:90]}")
+        say("profile", f"  {e.self_device_time_total / k:9.1f} us/{unit} "
+            f"{e.count / k:6.1f} calls/{unit}  {e.key[:90]}")
+    return busy, two_loop_us, k
 
 
 def large_phase(torch, dev, profile: bool, n=N_LARGE, iters=LARGE_ITERS, m=M_LARGE):
@@ -1028,9 +1052,201 @@ def large_phase(torch, dev, profile: bool, n=N_LARGE, iters=LARGE_ITERS, m=M_LAR
             f"{lp:.9g} ({how}); bf16 ring through {bf16_pick} {lb:.9g} "
             f"({abs(lb - lk) / lk * 100:.3e}% from f32)")
     if profile:
-        _profile(torch, problem, x0, (), opts["armijo-cuda"])
+        _profile(torch, lambda: lbfgs(problem, x0, (), opts["armijo-cuda"]))
     clear_graph_cache()
     return sum(launches[f"{ls}-cuda"][BLOCKED] for ls in searches), ms_iter
+
+
+def _capture_steps(sl, m_inner, L=SL_L):
+    """Inner steps a capture of an S-LBFGS epoch runs eagerly: its start
+    (the prologue), one segment (where the epoch has one) and its finish
+    (the tail), each once."""
+    nb, p_end, tail = sl._plan(m_inner, L)
+    return p_end + 1 + (L if nb >= 2 else 0) + tail
+
+
+def _graphs_note(sl, m_inner, L=SL_L):
+    nb, p_end, tail = sl._plan(m_inner, L)
+    seg = f", a segment of {L} steps replayed {nb - 1} times" if nb >= 2 else ""
+    return (f"the {m_inner}-step epoch as the start graph ({p_end + 1} steps){seg} and the "
+            f"finish graph ({tail} steps)")
+
+
+def stochastic_phase(torch, dev, profile: bool, mnist_root):
+    """S-LBFGS at the port bench's row on the MNIST net at full width (the
+    first SL_N samples): the resident solve (each epoch replayed from its
+    CUDA graphs, K1 with the gamma clamp once per inner step) against the
+    epoch's bodies run eagerly on the card and against the plain two-loop; the bf16
+    ring; then the Launcher's S-LBFGS on all N_TRAIN samples at its
+    defaults. K1's launches are counted from 0 just before the counted
+    solve and read just after it."""
+    import importlib
+
+    from lbfgs_ffnn_torch.data.datasets import Dataset
+    from lbfgs_ffnn_torch.launcher import Launcher, UnifiedConfig
+    from lbfgs_ffnn_torch.objectives.mlp import mlp_batch_problem, mlp_init, mlp_spec
+    from lbfgs_ffnn_torch.ops.cuda_two_loop import COOPERATIVE, kernel_dispatch, two_loop_cuda
+    from lbfgs_ffnn_torch.solvers.common import Resident, clear_graph_cache, clone
+
+    sl = importlib.import_module("lbfgs_ffnn_torch.solvers.slbfgs")  # the module, not slbfgs()
+
+    (x_all, y_all), source = _data(torch, dev, mnist_root)
+    x, y = x_all[:SL_N], y_all[:SL_N]
+    spec = mlp_spec(DIMS, ACTS)
+    problem = mlp_batch_problem(spec, lam=1e-4)
+    w0 = mlp_init(spec, torch.Generator().manual_seed(SEED), torch.float32, device=dev)
+    f0 = float(problem.fun(w0, x, y))
+    opts = sl.SLBFGSOptions(epochs=SL_EPOCHS, tol=1e-12, history=M, L=SL_L, batch_size=SL_B,
+                            hvp_batch_size=SL_BH, step_size=0.02)
+    m_inner = SL_N // SL_B
+    n_pad = -(-spec.n_params // 128) * 128
+    impls = {t: kernel_dispatch(n_pad, M, torch.float32, t)[0] for t in (None, torch.bfloat16)}
+    check(all(i == COOPERATIVE for i in impls.values()), f"the dispatch gives S-LBFGS's rings "
+          f"to {impls}, not K1")
+    say("stochastic", f"data: the first {SL_N:,} of {source}; 784-128-10 (n={spec.n_params:,}), "
+        f"lam 1e-4, initial loss {f0:.6g}; b={SL_B}, b_H={SL_BH}, M={M}, L={SL_L}, step 0.02, "
+        f"m_inner={m_inner}, {SL_EPOCHS} epochs; f32 and bf16 rings go to K1 with the gamma "
+        "clamp")
+
+    # captured = eager on the card, bitwise, after 5 epochs: anchor, ring, histories
+    five = opts._replace(epochs=5)
+    states = {}
+    for capture in (False, True):
+        kept = []
+        sl._solve(problem, w0, x, y, five, chunk=5, capture=capture,
+                  callback=lambda st, _e: kept.append(clone(st)))
+        torch.cuda.synchronize()
+        states[capture] = kept[-1]
+    ea, ca = states[False], states[True]
+    check(int(ea.epoch) == int(ca.epoch) == 5, f"5-epoch solves ran {int(ea.epoch)} and "
+          f"{int(ca.epoch)} epochs")
+    for name, a, b in [(f"ring {f}", getattr(ea.hist, f), getattr(ca.hist, f))
+                       for f in ea.hist._fields] + [
+            (f, getattr(ea, f), getattr(ca, f)) for f in ("w", "u_prev", "has_u", "loss_h")]:
+        check(torch.equal(a, b), f"captured vs eager body after 5 epochs: {name} differs")
+    say("stochastic", f"captured = eager body after 5 epochs, bitwise: the anchor, the ring (S, "
+        f"Y, rho, head={int(ca.hist.head)}, count={int(ca.hist.count)}), u_prev, has_u and the "
+        "loss history (so the draws on the card agree too)")
+
+    runs = {"captured": lambda o: sl.slbfgs(problem, w0, x, y, o),
+            "eager": lambda o: sl._slbfgs_resident_eager(problem, w0, x, y, o)}
+    clear_graph_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runs["captured"](opts)  # captures the epoch (warm-up included), then solves
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    capture_s = Resident.last_capture_s
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    runs["eager"](opts._replace(epochs=2))  # warm-up
+
+    results, times, launches = {}, {k: [] for k in runs}, None
+    for name in ("captured", "eager", "eager", "captured"):
+        _reset(two_loop_cuda.LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = runs[name](opts)
+        end.record()
+        torch.cuda.synchronize()
+        if name == "captured" and launches is None:
+            launches = dict(two_loop_cuda.LAUNCHES)
+        times[name].append(start.elapsed_time(end) / res.n_iters)
+        if name in results:
+            check(torch.equal(res.x, results[name].x), f"{name}: two runs differ")
+            continue
+        results[name] = res
+    rc, re_ = results["captured"], results["eager"]
+    for name, res in results.items():
+        lh = res.loss_history.cpu().numpy()
+        check(res.n_iters == SL_EPOCHS and bool(np.isfinite(lh).all())
+              and bool(torch.isfinite(res.x).all()), f"{name}: non-finite or short solve")
+        check(lh[-1] < f0, f"{name}: loss did not fall ({f0} -> {lh[-1]})")
+    check(torch.equal(rc.x, re_.x) and torch.equal(rc.loss_history, re_.loss_history),
+          "captured vs eager body: 30-epoch solves differ")
+    bound = -(-SL_EPOCHS // sl.RESIDENT_CHUNK) + 2
+    check(rc.n_host_syncs <= bound, f"captured: {rc.n_host_syncs} host syncs > {bound}")
+    want = SL_EPOCHS * m_inner
+    check(launches[COOPERATIVE] == want and sum(launches.values()) == want,
+          f"captured: launches {launches} != {SL_EPOCHS} epochs x {m_inner} steps through K1")
+
+    plain = sl.slbfgs(problem, w0, x, y, opts._replace(two_loop_impl="plain"))
+    lk, lp = rc.loss_history.cpu().numpy(), plain.loss_history.cpu().numpy()
+    check(np.allclose(lk[:3], lp[:3], rtol=1e-4, atol=0),
+          f"kernel vs plain: first 3 epochs' losses differ: {lk[:3]} vs {lp[:3]}")
+    check(abs(lk[-1] - lp[-1]) <= LOSS_GATE * lp[-1],
+          f"kernel vs plain: final losses {lk[-1]} vs {lp[-1]} more than 2% apart")
+    _reset(two_loop_cuda.LAUNCHES)
+    bf16 = sl.slbfgs(problem, w0, x, y, opts._replace(pair_dtype="bfloat16"))
+    bf16_launches = dict(two_loop_cuda.LAUNCHES)
+    lb = bf16.loss_history.cpu().numpy()
+    check(bool(np.isfinite(lb).all()) and lb[-1] < f0, "bf16 ring: non-finite loss or no fall")
+    # the capture's eager run of each of the epoch's bodies, then the solve
+    per_capture = _capture_steps(sl, m_inner)
+    check(bf16_launches[COOPERATIVE] == SL_EPOCHS * m_inner + per_capture,
+          f"bf16 ring: launches {bf16_launches} != {SL_EPOCHS} x {m_inner} + {per_capture} "
+          "(the capture's eager runs) through K1")
+    ms_epoch = {k: min(t) for k, t in times.items()}
+    say("stochastic", f"first captured solve (each of the epoch's graphs run once eagerly, "
+        f"flat-captured and captured, then {SL_EPOCHS} epochs) {first_s:.2f} s, of which the "
+        f"capture {capture_s:.3f} s; peak device memory {peak:.3f} GiB; "
+        + _graphs_note(sl, m_inner))
+    for name, res in results.items():
+        say("stochastic", f"{name}: {res.n_iters} epochs, loss {f0:.6g} -> "
+            f"{float(res.final_loss):.6g}, {ms_epoch[name]:.4f} ms/epoch (CUDA events, min of "
+            f"{[round(t, 4) for t in times[name]]}), host syncs {res.n_host_syncs}")
+    say("stochastic", f"captured = eager body over {SL_EPOCHS} epochs, bitwise; K1 launches "
+        f"(device count) {launches} = {SL_EPOCHS} epochs x {m_inner} steps; host syncs "
+        f"{rc.n_host_syncs} <= {bound}; kernel vs plain: first 3 epochs' losses to rtol 1e-4, "
+        f"final {lk[-1]:.6g} vs {lp[-1]:.6g} ({abs(lk[-1] - lp[-1]) / lp[-1] * 100:.3f}% apart, "
+        f"limit 2%); bf16 ring through K1 ({bf16_launches[COOPERATIVE]} launches = "
+        f"{SL_EPOCHS} x {m_inner} + {per_capture}): final {lb[-1]:.6g} vs f32 {lk[-1]:.6g} "
+        f"({(lb[-1] - lk[-1]) / lk[-1] * 100:+.3f}%, a reading, not a gate)")
+    k1_us = None
+    if profile:
+        busy, two_loop_us, k = _profile(torch, lambda: sl.slbfgs(problem, w0, x, y, opts),
+                                        unit="epoch")
+        if two_loop_us > 0:
+            k1_us = two_loop_us / (k * m_inner)
+            say("profile", f"S-LBFGS: K1 {k1_us:.2f} us of device time per call ({m_inner} "
+                "calls per epoch; kernel names under graph replay are not reliable, "
+                "PERF.md §7)")
+        else:
+            say("profile", "S-LBFGS: K1's device time per call not measured: the trace gave "
+                "the replayed kernels other names (PERF.md §7)")
+    clear_graph_cache()
+
+    # The Launcher's S-LBFGS on all N_TRAIN samples at its defaults (b=128,
+    # m_inner = N // b, b_H = 64, L = 10, M = 10, lam 1e-4)
+    launcher = Launcher("cpu", device="cuda")
+    launcher.add_layer(DIMS[0], DIMS[1], ACTS[0]).add_layer(DIMS[1], DIMS[2], ACTS[1])
+    x_np, y_np = x_all.cpu().numpy(), y_all.cpu().numpy()
+    launcher.build_network().set_data(Dataset(x_np, y_np, x_np[:0], y_np[:0]))
+    cfg = UnifiedConfig(name="SLBFGS_60k", max_iters=LAUNCHER_EPOCHS, write_csv=False)
+    _reset(two_loop_cuda.LAUNCHES)
+    c0 = Resident.captures
+    t0 = time.perf_counter()
+    rep = launcher.train("slbfgs", cfg, verbose=False)
+    train_s = time.perf_counter() - t0
+    big_launches = dict(two_loop_cuda.LAUNCHES)
+    big_inner = N_TRAIN // cfg.batch_size
+    lh = rep.result.loss_history.cpu().numpy()
+    check(rep.result.n_iters == LAUNCHER_EPOCHS and bool(np.isfinite(lh).all()),
+          f"Launcher S-LBFGS: {rep.result.n_iters} epochs, losses {lh}")
+    captures = Resident.captures - c0
+    big_capture = captures * _capture_steps(sl, big_inner)
+    want_big = (LAUNCHER_EPOCHS + rep.warmup_iters) * big_inner + big_capture
+    check(big_launches[COOPERATIVE] == want_big,
+          f"Launcher S-LBFGS: launches {big_launches} != ({LAUNCHER_EPOCHS} + "
+          f"{rep.warmup_iters} warm-up) x {big_inner} + {big_capture} (the capture)")
+    say("stochastic", f"Launcher S-LBFGS, N={N_TRAIN:,}, b={cfg.batch_size} (m_inner="
+        f"{big_inner}): capture {Resident.last_capture_s:.2f} s ({_graphs_note(sl, big_inner)});"
+        f" train() {train_s:.2f} s; {rep.ms_per_iter:.2f} ms/epoch (CUDA events, "
+        f"{LAUNCHER_EPOCHS} epochs), losses {[round(float(v), 6) for v in lh]}; K1 launches "
+        f"{big_launches[COOPERATIVE]} = ({LAUNCHER_EPOCHS} + {rep.warmup_iters} warm-up) x "
+        f"{big_inner} + {big_capture} (the capture's eager runs)")
+    clear_graph_cache()
+    return launches[COOPERATIVE], ms_epoch, k1_us
 
 
 def bench_phase():
@@ -1082,6 +1298,7 @@ def main() -> None:
     launches2, deep_ms = deep_phase(torch, args.profile)
     launches3, large_ms = large_phase(torch, dev, args.profile)
     bench = bench_phase()
+    launches_sl, sl_ms, sl_k1_us = stochastic_phase(torch, dev, args.profile, args.mnist_root)
 
     def entry(name, impl, replaces, launches, worst, m, n):
         ms, b_ms, b_by, _, k_pick, d_pick = table[m, n, "f32"]
@@ -1099,9 +1316,12 @@ def main() -> None:
                                      if k.startswith(BLOCKED)}
         return out
 
+    k1 = entry("two_loop_cooperative", COOPERATIVE, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:173",
+               launches1r + launches_sl, worst1, M, n)
+    # K1 runs on two main paths, each counted from 0 just before its solve
+    k1["launches_by_path"] = {"resident L-BFGS": launches1r, "stochastic S-LBFGS": launches_sl}
     kernels = [
-        entry("two_loop_cooperative", COOPERATIVE, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:173",
-              launches1r, worst1, M, n),
+        k1,
         entry("two_loop_streaming", STREAMING, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:81",
               launches2, worst2, M_DEEP, _n_params(DEEP_DIMS)),
         entry("two_loop_blocked", BLOCKED, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:230",
@@ -1115,6 +1335,8 @@ def main() -> None:
         + ", ".join(f"{k} {v:.4f}" for k, v in deep_ms.items())
         + "; large Rosenbrock ms/iter: " + ", ".join(f"{k} {v:.4f}" for k, v in large_ms.items())
         + "; diag n=4M m=50 ms/call: " + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in diag.items())
+        + "; S-LBFGS N=5000 ms/epoch: " + ", ".join(f"{k} {v:.4f}" for k, v in sl_ms.items())
+        + (f" (K1 {sl_k1_us:.2f} us device/call)" if sl_k1_us is not None else "")
         + f"; whole script {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

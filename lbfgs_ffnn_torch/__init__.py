@@ -8,21 +8,31 @@ loaders, the MLP objective with its carried line prefix, the analytic
 objectives, the Armijo and Wolfe line searches, the curvature ring with f32
 or bf16 pairs, the two-loop recursion as plain torch and as three
 hand-written Hopper kernels with their size dispatch, the L-BFGS solver with
-both searches, gradient descent, the recorder, the launcher, the MNIST
-runner, the harness and the large-n two-loop diagnostic).
+both searches, gradient descent, S-LBFGS with its batch problem and its
+device-side sampler, the recorder, the launcher, the MNIST runner, the
+harness and the large-n two-loop diagnostic).
 """
 
-from lbfgs_ffnn_torch.types import Problem, SolveResult, make_problem
-from lbfgs_ffnn_torch.solvers import GDOptions, LBFGSOptions, gradient_descent, lbfgs
+from lbfgs_ffnn_torch.types import (
+    BatchProblem, Problem, SolveResult, make_batch_problem, make_problem,
+)
+from lbfgs_ffnn_torch.solvers import (
+    GDOptions, LBFGSOptions, SLBFGSOptions, gradient_descent, lbfgs, slbfgs, slbfgs_chunked,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "BatchProblem",
     "Problem",
     "SolveResult",
+    "make_batch_problem",
     "make_problem",
     "GDOptions",
     "gradient_descent",
     "LBFGSOptions",
     "lbfgs",
+    "SLBFGSOptions",
+    "slbfgs",
+    "slbfgs_chunked",
 ]

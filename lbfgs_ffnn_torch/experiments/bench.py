@@ -28,9 +28,13 @@ Supplementary rows on stderr: the bf16 ring with the root bench's parity
 gate against f32 (exact f32 final loss within 2%, train accuracy within 0.3
 points, on the median over the seeds; a reading, not a headline candidate),
 the deep 784-256-128-64-10 m=100 rows (f32 and bf16 ring) on seeded Fashion
-labels, and the two-loop's µs per call at m=10 and m=100 for n=101,770
-(the dispatch's kernel and the plain loop, from the slope over two call
-counts). Rows the port cannot run yet print one "not ported" line each.
+labels, the S-LBFGS row (the root bench's: the first 5,000 samples, b=256,
+b_H=128, M=10, L=10, lam=1e-4, step 0.02, tol 1e-12, 100 epochs, 4 under
+BENCH_QUICK; ms/epoch per init seed 124-126 and their median, against the
+reference CPU's 214.7 ms/epoch; on the card each epoch replayed from its
+CUDA graphs), and the two-loop's µs per call at m=10 and m=100 for n=101,770 (the
+dispatch's kernel and the plain loop, from the slope over two call counts).
+Rows the port cannot run yet print one "not ported" line each.
 """
 
 from __future__ import annotations
@@ -48,10 +52,13 @@ import numpy as np
 import torch
 
 from lbfgs_ffnn_torch.data import datasets
-from lbfgs_ffnn_torch.objectives.mlp import evaluate, mlp_init, mlp_problem, mlp_spec
+from lbfgs_ffnn_torch.objectives.mlp import (
+    evaluate, mlp_batch_problem, mlp_init, mlp_problem, mlp_spec,
+)
 from lbfgs_ffnn_torch.ops.cuda_two_loop import kernel_dispatch, two_loop_cuda
 from lbfgs_ffnn_torch.ops.two_loop import empty_history_state, ring_push, two_loop
 from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, lbfgs
+from lbfgs_ffnn_torch.solvers.slbfgs import SLBFGSOptions, slbfgs
 
 METRIC = "MNIST 784-128-10 full-batch L-BFGS m=10 step time"
 BASELINE_MS = 7.20  # the reference CUDA backend's ms/iter (BASELINE.md)
@@ -60,6 +67,7 @@ DEEP_DIMS, DEEP_ACTS = [784, 256, 128, 64, 10], ["relu", "relu", "relu", "linear
 WARM_SEED, SEEDS = 123, (124, 125, 126)
 DEEP_SEEDS = (124, 125)
 LOSS_GATE, ACC_GATE = 0.02, 0.3  # the root bench's parity gate (bench.py:150-159)
+SLBFGS_REF_MS = 214.7  # the reference CPU's S-LBFGS ms/epoch at N=5000, b=256 (bench.py:162)
 
 # rows of the root bench the port cannot run yet -> the ROADMAP queue 1 item
 UNPORTED = {
@@ -69,7 +77,6 @@ UNPORTED = {
     "u8-warm-nr (u8-warm without the prefix refresh)": 3,
     "deep m=100 u8 traffic stack": 3,
     "deep m=100 u8 + warm alpha": 3,
-    "S-LBFGS N=5000 b=256 ms/epoch": 6,
 }
 
 
@@ -80,10 +87,12 @@ class Sizes(NamedTuple):
     iters: int
     two_loop_n: int
     calls: tuple[int, int]  # call counts of the two-loop slope
+    sl_n: int = 5_000       # S-LBFGS samples (the first of the data)
+    sl_epochs: int = 100
 
 
 FULL = Sizes(60_000, 1000, 101_770, (50, 350))
-QUICK = Sizes(6_000, 20, 101_770, (25, 125))
+QUICK = Sizes(6_000, 20, 101_770, (25, 125), sl_epochs=4)
 
 
 def log(*a) -> None:
@@ -154,6 +163,33 @@ def _report(tag: str, n_train: int, rows) -> None:
         + f"; median {statistics.median(ms):.4f}, min {min(ms):.4f}; "
         + "; ".join(f"seed {r[0]}: {r[2]} iters, {(r[3] - 1) / max(r[2], 1) - 1:.3f} "
                     f"trials/iter, exact f32 final loss {r[4]:.6g}, train acc {r[5]:.2f}%"
+                    for r in rows))
+
+
+def _slbfgs_row(x, y, sizes: Sizes, timed, dev) -> None:
+    """The root bench's S-LBFGS row: one warm-up solve (init seed 123; on
+    the card it captures the epoch), then one per seed, ms/epoch each."""
+    n = min(sizes.sl_n, x.shape[0])
+    xs, ys = x[:n], y[:n]
+    spec = mlp_spec(DIMS, ACTS)
+    problem = mlp_batch_problem(spec, lam=1e-4)
+    opts = SLBFGSOptions(epochs=sizes.sl_epochs, tol=1e-12, history=10, L=10, batch_size=256,
+                         hvp_batch_size=128, step_size=0.02)
+
+    def w0(seed):
+        return mlp_init(spec, torch.Generator().manual_seed(seed), torch.float32, device=dev)
+
+    slbfgs(problem, w0(WARM_SEED), xs, ys, opts)
+    rows = []
+    for seed in SEEDS:
+        res, seconds = timed(lambda: slbfgs(problem, w0(seed), xs, ys, opts))
+        rows.append((seed, seconds * 1e3 / max(res.n_iters, 1), res.n_iters,
+                     float(res.final_loss), res.n_host_syncs))
+    log(f"S-LBFGS N={n} b=256 ms/epoch per seed "
+        + ", ".join(f"{r[0]}: {r[1]:.4f}" for r in rows)
+        + f"; median {statistics.median(r[1] for r in rows):.4f} (reference CPU: "
+        f"{SLBFGS_REF_MS} ms/epoch); "
+        + "; ".join(f"seed {r[0]}: {r[2]} epochs, final full loss {r[3]:.6g}, {r[4]} host syncs"
                     for r in rows))
 
 
@@ -262,6 +298,8 @@ def main(argv=None, sizes: Sizes | None = None) -> dict:
         _, _, rows = _solves(DEEP_DIMS, DEEP_ACTS, xd, yd, o, DEEP_SEEDS, timed, dev)
         _report(f"deep 784-256-128-64-10 m=100 [{tag}] (reference GPU: 19.4 ms/iter)",
                 sizes.n_train, rows)
+
+    _slbfgs_row(x, y, sizes, timed, dev)
 
     n = sizes.two_loop_n
     for m in (10, 100):

@@ -8,10 +8,11 @@ Style "cuda" (reference main-gpu.cpp: 60,000 samples):
 Style "cpu" (reference main-cpu.cpp: 5,000 samples):
   GD(mom .9) -> SGD -> S-LBFGS -> L-BFGS(m=20, Wolfe).
 
-Runs on the card unless ``--device cpu``; rows whose solver is not ported
-yet (SGD, S-LBFGS, Wolfe L-BFGS) are named on one line and not run. Each run
-writes ``<name>_history.csv`` into ``--out-dir``; ``--timed-chunks K`` runs
-the L-BFGS rows in K-iteration chunks with a measured ``TimeMs`` column.
+Runs on the card unless ``--device cpu``; the rows whose solver is not
+ported yet (SGD) are named on one line and not run. Each run writes
+``<name>_history.csv`` into ``--out-dir``; ``--timed-chunks K`` runs the
+Armijo L-BFGS rows in K-iteration chunks and the S-LBFGS row in K-epoch
+chunks, with a measured ``TimeMs`` column.
 
 Usage:
   python -m lbfgs_ffnn_torch.experiments.run_mnist --dataset fashion --deep --data-root DIR
@@ -27,9 +28,7 @@ from lbfgs_ffnn_torch.launcher import Launcher, TrainReport, UnifiedConfig
 
 # (solver, style) rows not ported yet -> what they wait for
 _DEFERRED = {("sgd", "cpu"): "SGD, ROADMAP queue 1 item 7",
-             ("sgd", "cuda"): "SGD, ROADMAP queue 1 item 7",
-             ("slbfgs", "cpu"): "S-LBFGS, ROADMAP queue 1 item 6",
-             ("lbfgs", "cpu"): "Wolfe L-BFGS through the Launcher, ROADMAP queue 1 item 5"}
+             ("sgd", "cuda"): "SGD, ROADMAP queue 1 item 7"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,8 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", default=".", help="where the history CSVs go")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     p.add_argument("--timed-chunks", type=int, default=0,
-                   help="K > 0: run L-BFGS in K-iteration chunks (lbfgs_chunked) with a measured "
-                        "TimeMs column (GD rows keep the whole-solve time)")
+                   help="K > 0: run Armijo L-BFGS in K-iteration chunks (lbfgs_chunked) and "
+                        "S-LBFGS in K-epoch chunks (slbfgs_chunked) with a measured TimeMs "
+                        "column (GD and Wolfe L-BFGS rows keep the whole-solve time)")
     return p
 
 
@@ -68,7 +68,10 @@ def run_list(args) -> list[tuple[str, UnifiedConfig]]:
                                  tolerance=1e-4, learning_rate=0.01, momentum=0.9,
                                  log_interval=1)),
             ("sgd", UnifiedConfig(name=f"{name}_SGD", max_iters=args.iters)),
-            ("slbfgs", UnifiedConfig(name=f"{name}_SLBFGS", max_iters=args.iters)),
+            ("slbfgs", UnifiedConfig(name=f"{name}_SLBFGS", max_iters=args.iters,
+                                     tolerance=1e-4, learning_rate=0.02, batch_size=256,
+                                     m_param=10, L_param=10, b_H_param=128,
+                                     log_interval=1, two_loop_impl=two_loop)),
             ("lbfgs", UnifiedConfig(name=f"{name}_LBFGS", max_iters=args.iters,
                                     tolerance=1e-4, m_param=20, log_interval=1,
                                     two_loop_impl=two_loop)),
@@ -127,7 +130,8 @@ def main(argv=None) -> list[tuple[str, UnifiedConfig, TrainReport]]:
 
     done = []
     for solver, cfg in runs:
-        if solver == "lbfgs" and args.timed_chunks > 0:
+        chunked = solver == "slbfgs" or (solver == "lbfgs" and args.style == "cuda")
+        if chunked and args.timed_chunks > 0:
             cfg.timed_chunks = args.timed_chunks
         print(f"Running {cfg.name} ({solver}, seed={cfg.seed})...")
         report = launcher.train(solver, cfg)

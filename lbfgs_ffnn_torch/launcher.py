@@ -5,28 +5,29 @@ src/unified_optimization.hpp:26-48, src/unified_launcher.hpp):
 ``add_layer -> build_network -> set_data -> train(solver, config) -> test()``.
 
 Backend styles select solver policy as in the JAX package: ``"cuda"`` is
-Armijo with interpolation for L-BFGS and zero biases at init, ``"cpu"``
-Wolfe for L-BFGS and random biases. The launcher runs on ``device``, which
+Armijo with interpolation for L-BFGS (20 trials) and zero biases at init,
+``"cpu"`` Wolfe for L-BFGS (50 trials) and random biases. The launcher runs on ``device``, which
 is ``"cuda"`` unless the caller passes ``"cpu"``; without a card it raises
 and never moves to the CPU on its own.
 
-Timing: a short warm-up (``WARMUP_ITERS`` iterations) first pays the
-one-time costs of a process (the nvcc builds, cuBLAS set-up) and, for
-L-BFGS on the card, captures the timed solve's iteration as a CUDA graph;
-then the timed solve runs, its wall time from CUDA events around it on the
-card. With ``timed_chunks = K > 0`` (L-BFGS), the solve is
-:func:`~lbfgs_ffnn_torch.solvers.lbfgs.lbfgs_chunked` in K-iteration chunks
-and the CSV's ``TimeMs`` column is its measured cumulative time per chunk,
-as in the JAX package; without it, the whole solve's time is spread over
-the iterations.
+Timing: a short warm-up (``WARMUP_ITERS`` iterations or epochs) first pays
+the one-time costs of a process (the nvcc builds, cuBLAS set-up) and, for
+Armijo L-BFGS and S-LBFGS on the card, captures the timed solve's
+iteration or epoch as a CUDA graph; then the timed solve runs, its wall
+time from CUDA events around it on the card. With ``timed_chunks = K > 0``
+(Armijo L-BFGS, S-LBFGS), the solve is ``lbfgs_chunked`` or
+``slbfgs_chunked`` in K-iteration (K-epoch) chunks and the CSV's ``TimeMs``
+column is its measured cumulative time per chunk, as in the JAX package;
+without it, the whole solve's time is spread over the iterations.
 
-Ported: the ``"gd"`` and ``"lbfgs"`` (Armijo) solvers. Not ported yet, and
-raising ``NotImplementedError`` with their ROADMAP item when asked for:
-``"sgd"``, ``"slbfgs"``, L-BFGS with the Wolfe search (the ``"cpu"``
-style; the solver has it, the launcher does not pass it through yet),
-``timed_chunks > 0`` for GD, ``compute_dtype``, ``prefix_dtype``, the
-``*_input_dtype`` copies and ``ls_alpha_init="warm"``. The config fields
-only those read (batch size, decay, S-LBFGS sizes, ...) return with them.
+Ported: ``"gd"``, ``"lbfgs"`` (Armijo and Wolfe) and ``"slbfgs"`` (its
+options mapped as the JAX launcher's ``_slbfgs_opts``: lam 1e-4 when 0,
+``m_inner = N // batch_size``, ``b_H = batch_size // 2`` unless set). Not
+ported yet, and raising ``NotImplementedError`` with their ROADMAP item
+when asked for: ``"sgd"``, ``timed_chunks > 0`` for GD and for Wolfe
+L-BFGS, ``compute_dtype``, ``prefix_dtype``, the ``*_input_dtype`` copies
+and ``ls_alpha_init="warm"``. The config fields only those read (decay,
+``record_accuracy``, ...) return with them.
 """
 
 from __future__ import annotations
@@ -39,16 +40,24 @@ from typing import Optional
 import torch
 
 from lbfgs_ffnn_torch.data.datasets import Dataset
-from lbfgs_ffnn_torch.objectives.mlp import MLPSpec, evaluate, mlp_init, mlp_problem, mlp_spec
+from lbfgs_ffnn_torch.objectives.mlp import (
+    MLPSpec, evaluate, mlp_batch_problem, mlp_init, mlp_problem, mlp_spec,
+)
 from lbfgs_ffnn_torch.recorder import History, history_from_result, write_history_csv
 from lbfgs_ffnn_torch.solvers.gd import GDOptions, gradient_descent
 from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, _solve_resident, lbfgs, lbfgs_chunked
+from lbfgs_ffnn_torch.solvers.slbfgs import _solve as _slbfgs_solve
+from lbfgs_ffnn_torch.solvers.slbfgs import SLBFGSOptions, slbfgs, slbfgs_chunked
 from lbfgs_ffnn_torch.types import SolveResult
 
 WARMUP_ITERS = 2
 
 # solver -> ROADMAP queue 1 item that ports it
-_UNPORTED_SOLVERS = {"sgd": 7, "slbfgs": 6}
+_UNPORTED_SOLVERS = {"sgd": 7}
+# L-BFGS trial budget per line search: the reference CPU's Wolfe
+# (full_batch_minimizer.hpp), the reference CUDA backend's Armijo
+# (minimizer_base.cuh)
+_LS_BUDGETS = {"wolfe": 50, "armijo": 20}
 # config field -> (its value when unused, ROADMAP queue 1 item that ports it)
 _UNPORTED_FIELDS = {
     "compute_dtype": (None, 3),
@@ -73,15 +82,19 @@ class UnifiedConfig:
     tolerance: float = 1e-4
     learning_rate: float = 0.01
     momentum: float = 0.0
+    batch_size: int = 128        # S-LBFGS: b (m_inner = N // b)
     m_param: int = 10
+    L_param: int = 10            # S-LBFGS: curvature update interval
+    b_H_param: int = 0           # S-LBFGS: HVP batch; 0 -> batch_size // 2
     log_interval: int = 10
     reset_params: bool = True
     seed: int = 123
+    lam: float = 0.0             # L2 of the S-LBFGS objective; 0 -> 1e-4 (the reference's)
     two_loop_impl: str = "cuda"
     write_csv: bool = True
     line_search: str = ""        # L-BFGS override: "" = backend style
     pair_dtype: Optional[str] = None  # "bfloat16": the curvature ring in bf16
-    timed_chunks: int = 0  # K > 0: L-BFGS in measured K-iteration chunks (GD: not yet)
+    timed_chunks: int = 0  # K > 0: measured K-iteration chunks (Armijo L-BFGS, S-LBFGS)
     # Not ported yet: anything but these values raises.
     compute_dtype: Optional[str] = None
     prefix_dtype: Optional[str] = None
@@ -110,7 +123,7 @@ def _check_ported(solver: str, c: UnifiedConfig) -> None:
     if solver in _UNPORTED_SOLVERS:
         raise NotImplementedError(f"solver {solver!r} is not ported yet "
                                   f"(ROADMAP queue 1 item {_UNPORTED_SOLVERS[solver]})")
-    if solver not in ("gd", "lbfgs"):
+    if solver not in ("gd", "lbfgs", "slbfgs"):
         raise ValueError(f"unknown solver {solver!r}")
     if solver == "gd" and c.timed_chunks > 0:
         raise NotImplementedError("UnifiedConfig(timed_chunks > 0) for GD is not ported yet "
@@ -154,6 +167,7 @@ class Launcher:
     def build_network(self, seed: int = 123) -> "Launcher":
         self.spec = mlp_spec(self._dims, self._acts)
         self._problem = mlp_problem(self.spec)
+        self._batch_problems = {}  # lam -> one BatchProblem: captured epochs key on it
         self._bind_params(seed)
         return self
 
@@ -181,12 +195,17 @@ class Launcher:
 
         measured_ms, warmup_iters = None, 0
         if config.timed_chunks > 0:
-            # lbfgs_chunked captures its iteration before its first chunk
-            # and measures the chunks alone
+            # the chunked drivers capture their step before the first chunk
+            # and measure the chunks alone
             t0 = time.perf_counter()
-            result, measured_ms = lbfgs_chunked(self._problem, self.weights,
-                                                (self._x, self._y), self._lbfgs_opts(config),
-                                                chunk=config.timed_chunks)
+            if solver == "slbfgs":
+                result, measured_ms = slbfgs_chunked(
+                    self._batch_problem(config), self.weights, self._x, self._y,
+                    self._slbfgs_opts(config), chunk=config.timed_chunks)
+            else:
+                result, measured_ms = lbfgs_chunked(
+                    self._problem, self.weights, (self._x, self._y), self._lbfgs_opts(config),
+                    chunk=config.timed_chunks)
             wall = time.perf_counter() - t0
         else:
             warmup_iters = self._warm_up(solver, config).n_iters
@@ -222,11 +241,17 @@ class Launcher:
         return TrainReport(result, history, wall, csv_path, train_eval, warmup_iters)
 
     def _warm_up(self, solver: str, c: UnifiedConfig) -> SolveResult:
-        """``WARMUP_ITERS`` iterations before the timed solve; for L-BFGS on
-        the card, of the timed solve's own captured iteration (captured
-        here, so the timed solve replays it from the cache)."""
+        """``WARMUP_ITERS`` iterations (epochs) before the timed solve; for
+        Armijo L-BFGS and S-LBFGS on the card, of the timed solve's own
+        captured iteration or epoch (captured here, so the timed solve
+        replays it from the cache)."""
         n = min(c.max_iters, WARMUP_ITERS)
-        if solver == "lbfgs" and self.device.type == "cuda":
+        if self.device.type == "cuda" and solver == "slbfgs":
+            return _slbfgs_solve(self._batch_problem(c), self.weights, self._x, self._y,
+                                 self._slbfgs_opts(c), chunk=max(n, 1), capture=True,
+                                 epochs=n)[0]
+        if (self.device.type == "cuda" and solver == "lbfgs"
+                and self._lbfgs_opts(c).line_search == "armijo"):
             return _solve_resident(self._problem, self.weights, (self._x, self._y),
                                    self._lbfgs_opts(c), chunk=max(n, 1), capture=True,
                                    pipeline=False, iters=n)[0]
@@ -252,20 +277,43 @@ class Launcher:
         if solver == "gd":
             return gradient_descent(self._problem, self.weights, aux,
                                     self._gd_opts(c)._replace(max_iters=max_iters))
+        if solver == "slbfgs":
+            return slbfgs(self._batch_problem(c), self.weights, self._x, self._y,
+                          self._slbfgs_opts(c)._replace(epochs=max_iters))
         return lbfgs(self._problem, self.weights, aux,
                      self._lbfgs_opts(c)._replace(max_iters=max_iters))
 
     def _lbfgs_opts(self, c: UnifiedConfig) -> LBFGSOptions:
         ls = c.line_search or ("armijo" if self.backend_style == "cuda" else "wolfe")
-        if ls != "armijo":
-            raise NotImplementedError(
-                f"L-BFGS line_search={ls!r} is not ported to the Launcher yet (ROADMAP queue 1 "
-                "item 5; lbfgs() itself takes line_search=\"wolfe\")")
-        # The reference CUDA backend's trial budget (minimizer_base.cuh).
+        if ls == "armijo_batched":
+            raise NotImplementedError("L-BFGS line_search=\"armijo_batched\" is not ported "
+                                      "(ROADMAP queue 1: not ported unless a measurement asks)")
+        if ls not in _LS_BUDGETS:
+            raise ValueError(f"unknown line_search {ls!r}; expected one of {sorted(_LS_BUDGETS)}")
         return LBFGSOptions(
             max_iters=c.max_iters, tol=c.tolerance,
             m=c.m_param if c.m_param > 0 else 10,
-            line_search="armijo", ls_max_iters=20,
+            line_search=ls, ls_max_iters=_LS_BUDGETS[ls],
+            two_loop_impl=c.two_loop_impl, pair_dtype=c.pair_dtype,
+        )
+
+    def _batch_problem(self, c: UnifiedConfig):
+        """The S-LBFGS objective: lam 1e-4 when the config leaves it 0 (the
+        reference strategy's L2, unified_optimization.hpp:375,398)."""
+        lam = c.lam if c.lam > 0 else 1e-4
+        if lam not in self._batch_problems:
+            self._batch_problems[lam] = mlp_batch_problem(self.spec, lam=lam)
+        return self._batch_problems[lam]
+
+    def _slbfgs_opts(self, c: UnifiedConfig) -> SLBFGSOptions:
+        # The reference strategy's sizes: m_inner = N / batch, b_H = batch / 2
+        # (unified_optimization.hpp:314-405).
+        return SLBFGSOptions(
+            epochs=c.max_iters, tol=c.tolerance,
+            m_inner=max(int(self._x.shape[0]) // c.batch_size, 1),
+            history=c.m_param, L=c.L_param, batch_size=c.batch_size,
+            hvp_batch_size=c.b_H_param if c.b_H_param > 0 else c.batch_size // 2,
+            step_size=c.learning_rate, seed=c.seed,
             two_loop_impl=c.two_loop_impl, pair_dtype=c.pair_dtype,
         )
 

@@ -7,11 +7,14 @@ from lbfgs_ffnn_torch.objectives.mlp import (
     MLPSpec,
     evaluate,
     mlp_apply,
+    mlp_batch_problem,
     mlp_init,
     mlp_loss,
     mlp_problem,
     mlp_spec,
     params_from_numpy,
+    slbfgs_state_from_numpy,
+    take_batch,
 )
 
 __all__ = [
@@ -21,9 +24,12 @@ __all__ = [
     "MLPSpec",
     "evaluate",
     "mlp_apply",
+    "mlp_batch_problem",
     "mlp_init",
     "mlp_loss",
     "mlp_problem",
     "mlp_spec",
     "params_from_numpy",
+    "slbfgs_state_from_numpy",
+    "take_batch",
 ]

@@ -24,7 +24,9 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from lbfgs_ffnn_torch.types import LinePrefix, Problem, make_problem
+from lbfgs_ffnn_torch.types import (
+    BatchProblem, LinePrefix, Problem, make_batch_problem, make_problem,
+)
 
 _ACTIVATIONS = {
     "linear": lambda z: z,
@@ -115,6 +117,46 @@ def params_from_numpy(spec: MLPSpec, w: np.ndarray, device=None,
             f"expected a flat vector of {spec.n_params} parameters for dims "
             f"{spec.dims}, got shape {w.shape}")
     return torch.tensor(w, dtype=dtype, device=device)
+
+
+def slbfgs_state_from_numpy(spec: MLPSpec, state, device=None, dtype=torch.float32):
+    """Carry an S-LBFGS state over from the JAX package: ``state`` has the
+    fields of ``lbfgs_ffnn_tpu.solvers.slbfgs._State`` (``metric_h`` is
+    ignored) as numpy arrays or anything ``np.asarray`` takes, e.g.
+    ``jax.tree.map(np.asarray, state)``. The curvature rows are cut to the
+    parameter count and padded to this package's row length; a 2-byte pair
+    type becomes the bfloat16 ring (its values carried exactly). Returns the
+    :class:`lbfgs_ffnn_torch.solvers.slbfgs._State` that ``slbfgs_chunked``
+    resumes from."""
+    from lbfgs_ffnn_torch.ops.two_loop import RingState, _round_up
+    from lbfgs_ffnn_torch.solvers.slbfgs import _State
+
+    n = spec.n_params
+
+    def vec(a):
+        return params_from_numpy(spec, np.asarray(a), device, dtype)
+
+    def arr(a, dt):
+        return torch.tensor(np.asarray(a), dtype=dt, device=device)
+
+    def rows(a):
+        a = np.asarray(a)
+        a = a.reshape(a.shape[0], -1)[:, :n]
+        pd = torch.bfloat16 if a.dtype.itemsize == 2 else dtype
+        out = torch.zeros((a.shape[0], _round_up(n)), dtype=pd, device=device)
+        out[:, :n] = torch.tensor(a.astype(np.float32) if a.dtype.itemsize == 2 else a,
+                                  device=device)
+        return out
+
+    h = state.hist
+    return _State(
+        epoch=arr(state.epoch, torch.int32), w=vec(state.w),
+        hist=RingState(S=rows(h.S), Y=rows(h.Y), rho=arr(h.rho, dtype),
+                       head=arr(h.head, torch.int32), count=arr(h.count, torch.int32)),
+        u_prev=vec(state.u_prev), has_u=arr(state.has_u, torch.bool),
+        stop=arr(state.stop, torch.bool), gnorm=arr(state.gnorm, dtype),
+        loss_h=arr(state.loss_h, dtype), gnorm_h=arr(state.gnorm_h, dtype),
+    )
 
 
 def _layer(w: torch.Tensor, w_off: int, b_off: int, d_in: int, d_out: int):
@@ -261,6 +303,33 @@ def mlp_problem(
         vag_restrict_carry=_vag_restrict_full,
     )
     return make_problem(fun, line_fun=line_fun, line_prefix=line_prefix)
+
+
+def mlp_batch_problem(spec: MLPSpec, lam: float = 0.0, compute_dtype=None) -> BatchProblem:
+    """Per-batch problem for the stochastic solvers; its callables take
+    ``(w, xb, yb)``: the per-sample loss 0.5*||out - y||^2 and, when ``lam``
+    is set, the L2 term 0.5*lam*||w||^2 on every batch loss (the reference
+    S-LBFGS training's, src/unified_optimization.hpp:375,398). uint8 batches
+    and ``compute_dtype`` raise as in :func:`mlp_apply`."""
+
+    def per_sample(w, xb, yb):
+        out = mlp_apply(spec, w, xb, compute_dtype)
+        diff = out - yb
+        return 0.5 * torch.sum(diff * diff, dim=1)
+
+    if compute_dtype is not None:
+        raise NotImplementedError("mlp_batch_problem(compute_dtype=...) is not ported yet")
+    # sum(w * w), not dot(w, w): S-LBFGS vmaps the gradient over two iterates,
+    # and a vmapped dot becomes a batched GEMM with k = n, which cuBLAS runs
+    # as a slow gemv (45 us of device time per step at n = 101,770 on an H100)
+    reg = (lambda w: 0.5 * lam * torch.sum(w * w)) if lam else None
+    return make_batch_problem(per_sample, reg)
+
+
+def take_batch(x: torch.Tensor, y: torch.Tensor,
+               indices: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather a minibatch by index set (one ``index_select`` per operand)."""
+    return x.index_select(0, indices), y.index_select(0, indices)
 
 
 def evaluate(spec: MLPSpec, w: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> dict:

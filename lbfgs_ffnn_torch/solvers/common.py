@@ -1,17 +1,21 @@
 """Shared solver utilities: history recording, the result record, the
-full-f32 guard and the measured-chunk driver protocol. Counterpart of
-:mod:`lbfgs_ffnn_tpu.solvers.common` (its jit cache has no counterpart:
-eager PyTorch compiles nothing, and the captured iterations are cached by
-the solver that captures them)."""
+full-f32 guard, the measured-chunk driver protocol and the resident driver
+the L-BFGS and S-LBFGS solves share. Counterpart of
+:mod:`lbfgs_ffnn_tpu.solvers.common`; its jit cache has no counterpart
+(eager PyTorch compiles nothing), the cache of captured steps
+(:func:`cached_resident`) stands in its place."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from lbfgs_ffnn_torch.ops.control import Graph, capture
 from lbfgs_ffnn_torch.types import SolveResult
 
 
@@ -129,3 +133,192 @@ def drive_chunks(run_chunk, state, args, total, counter, done, callback=None, pi
             return cur, time_ms
         k_prev = k_now
         cur = nxt
+
+
+# ---------------------------------------------------------------------------
+# The resident driver: a solver's state and step on the device
+# ---------------------------------------------------------------------------
+
+
+def tensors(tree) -> list[torch.Tensor]:
+    """The tensors of a tree of NamedTuples and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for item in tree for t in tensors(item)]
+    return []
+
+
+def clone(tree):
+    """A copy of a tree of NamedTuples and tuples with every tensor cloned."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple):
+        items = [clone(t) for t in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def copy_state(dst, src) -> None:
+    """Copy every tensor of the tree ``src`` into ``dst``'s, in place."""
+    for d, t in zip(tensors(dst), tensors(src), strict=True):
+        d.copy_(t)
+
+
+class Resident:
+    """A solver's state in static device buffers, its step and, on CUDA,
+    that step captured into CUDA graphs (:mod:`lbfgs_ffnn_torch.ops.control`).
+
+    A step is ``bodies`` run in the order ``schedule`` (indices into
+    ``bodies``; by default each body once, in order): each
+    ``body(state, not_done)`` works in place, guarded by the device bool
+    ``not_done``, which the step updates; ``not_done_of(state)`` computes
+    that bool. Bodies hand each other values only through static buffers
+    made before capture. Each capture first runs every body once eagerly on
+    a copy of the state (``captures`` counts them: a launch count on the
+    card sees those runs too), then once in a flat check capture, where a
+    host sync in a body raises cleanly, then into the graph that
+    :meth:`step` replays.
+    """
+
+    captures = 0
+    last_capture_s = None  # seconds the latest capture took, its eager runs included
+
+    def __init__(self, bodies, state, not_done_of: Callable, capture: bool, schedule=None):
+        self.bodies = list(bodies)
+        self.schedule = list(range(len(self.bodies)) if schedule is None else schedule)
+        self.state = state
+        self._not_done_of = not_done_of
+        self.not_done = not_done_of(state)
+        self.graphs = None
+        self.syncs = 0
+        if capture:
+            self._capture()
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        # An eager run of the bodies on a copy of the state first, on a side
+        # stream: cuBLAS, the allocator and the kernels' launch
+        # configurations are set up before capture.
+        warm, flag = clone(self.state), self.not_done.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for body in self.bodies:
+                body(warm, flag)
+        torch.cuda.current_stream().wait_stream(side)
+        Resident.captures += 1
+        # The capture mode ("global") raises on any host sync. A flat
+        # capture first (no IF nodes, never replayed) is where a sync in a
+        # body raises: inside an IF node's body it could not be unwound.
+        for body in self.bodies:
+            with capture(Graph(flat=True)):
+                body(warm, self.not_done.clone())
+        del warm
+        self.graphs = []
+        for body in self.bodies:
+            self.graphs.append(Graph())
+            with capture(self.graphs[-1]):
+                body(self.state, self.not_done)
+        torch.cuda.synchronize()
+        Resident.last_capture_s = time.perf_counter() - t0
+
+    def load(self, src) -> None:
+        copy_state(self.state, src)
+        self.not_done.copy_(self._not_done_of(self.state))
+        self.syncs = 0
+
+    def step(self) -> None:
+        for i in self.schedule:
+            if self.graphs is not None:
+                self.graphs[i].replay()
+            else:
+                self.bodies[i](self.state, self.not_done)
+
+
+class Snapshot:
+    """The int32 scalars ``counters(state)`` and ``not_done`` copied to the
+    host behind a chunk; the first read waits for them, the chunk's one host
+    sync. ``values()`` is ``(*counters, not_done)``."""
+
+    def __init__(self, r: Resident, counters: Callable, known: Optional[tuple] = None):
+        self._r, self._values = r, known
+        if known is not None:
+            return
+        packed = torch.stack([c.to(torch.int32) for c in counters(r.state)]
+                             + [r.not_done.to(torch.int32)])
+        if packed.is_cuda:
+            self._host = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
+            self._host.copy_(packed, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = packed, None
+
+    def values(self) -> tuple:
+        if self._values is None:
+            if self._event is not None:
+                self._event.synchronize()
+            *counts, not_done = self._host.tolist()
+            self._values = (*counts, bool(not_done))
+            self._r.syncs += 1
+        return self._values
+
+
+def drive_resident(r: Resident, chunk: int, total: int, counters: Callable,
+                   known: Optional[tuple] = None, callback=None, pipeline: bool = True):
+    """Run ``r`` in ``chunk``-step pieces through :func:`drive_chunks` until
+    ``total`` steps or its stop, reading ``counters(state)`` (the first of
+    them the step counter) and ``not_done`` once per chunk; ``known`` gives
+    the starting values without a read. ``callback(state, elapsed_s)`` gets
+    the live state. Returns ``(values, time_ms)``, ``values`` the last
+    read."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+
+    def run_chunk(_snap):
+        for _ in range(chunk):
+            r.step()
+        return Snapshot(r, counters)
+
+    cb = None
+    if callback is not None:
+        def cb(_snap, elapsed):
+            callback(r.state, elapsed)
+
+    last, time_ms = drive_chunks(
+        run_chunk, Snapshot(r, counters, known), (), total,
+        counter=lambda snap: snap.values()[0],
+        done=lambda snap: not snap.values()[-1],
+        callback=cb, pipeline=pipeline,
+    )
+    return last.values(), time_ms
+
+
+RESIDENT_CACHE_SIZE = 8  # captured steps kept; each holds a memory pool
+_GRAPHS: "collections.OrderedDict[tuple, Resident]" = collections.OrderedDict()
+
+
+def data_key(aux) -> tuple:
+    """What a captured step's cache key holds of its data: each tensor's
+    storage address, shape, dtype and device (the graph reads them at fixed
+    addresses)."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.device) for t in tensors(aux))
+
+
+def cached_resident(key: tuple, make: Callable[[], Resident]) -> Resident:
+    """The captured step cached under ``key`` (which must pin everything the
+    graph reads: problem, options, shapes and :func:`data_key`; the entry
+    keeps the data alive), else ``make()``'s, cached."""
+    if key in _GRAPHS:
+        _GRAPHS.move_to_end(key)
+        return _GRAPHS[key]
+    while len(_GRAPHS) >= RESIDENT_CACHE_SIZE:
+        _GRAPHS.popitem(last=False)
+    _GRAPHS[key] = make()
+    return _GRAPHS[key]
+
+
+def clear_graph_cache() -> None:
+    """Drop every captured step (and the memory pools they hold)."""
+    _GRAPHS.clear()

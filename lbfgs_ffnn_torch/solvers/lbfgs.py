@@ -44,12 +44,11 @@ two-loops, pair dtypes other than bfloat16, ``prefix_dtype`` with
 
 from __future__ import annotations
 
-import collections
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from lbfgs_ffnn_torch.ops.control import Graph, assign, capture, guard
+from lbfgs_ffnn_torch.ops.control import assign, guard
 from lbfgs_ffnn_torch.ops.cuda_two_loop import two_loop_cuda
 from lbfgs_ffnn_torch.ops.linesearch import (
     armijo_quad_line_search, armijo_quad_line_search_device, wolfe_line_search,
@@ -57,8 +56,9 @@ from lbfgs_ffnn_torch.ops.linesearch import (
 from lbfgs_ffnn_torch.ops.two_loop import (
     RingState, empty_history_state, ring_push, ring_reset, two_loop, two_loop_compact,
 )
-from lbfgs_ffnn_torch.solvers.common import (
-    drive_chunks, finalize, full_f32, init_history, record, record_at,
+from lbfgs_ffnn_torch.solvers.common import (  # clear_graph_cache: re-exported
+    Resident, cached_resident, clear_graph_cache, data_key, drive_resident,  # noqa: F401
+    finalize, full_f32, init_history, record, record_at, tensors,
 )
 from lbfgs_ffnn_torch.types import Problem, SolveResult, prepared_aux
 
@@ -368,29 +368,6 @@ def _not_done(s: _State, opts: LBFGSOptions) -> torch.Tensor:
     return (s.k < opts.max_iters) & (s.gnorm >= opts.tol)
 
 
-def _tensors(tree) -> list[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, (tuple, list)):
-        return [t for item in tree for t in _tensors(item)]
-    return []
-
-
-def _clone(tree):
-    """A copy of a tree of NamedTuples and tuples with every tensor cloned."""
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    if isinstance(tree, tuple):
-        items = [_clone(t) for t in tree]
-        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
-    return tree
-
-
-def _copy_state(dst: _State, src: _State) -> None:
-    for d, t in zip(_tensors(dst), _tensors(src), strict=True):
-        d.copy_(t)
-
-
 def _make_resident_body(problem: Problem, opts: LBFGSOptions):
     """``body(s, not_done, aux)``: JAX's Armijo iteration on the device
     state ``s``, in place, guarded by the device bool ``not_done`` (which it
@@ -458,7 +435,7 @@ def _make_resident_body(problem: Problem, opts: LBFGSOptions):
                              (s.k, k_new)):
                 assign(not_done, dst, new)
             if use_prefix:
-                for dst, new in zip(_tensors(s.prefix), _tensors(prefix_new), strict=True):
+                for dst, new in zip(tensors(s.prefix), tensors(prefix_new), strict=True):
                     assign(not_done, dst, new)
             assign(not_done, not_done, not_done_new)
 
@@ -466,118 +443,28 @@ def _make_resident_body(problem: Problem, opts: LBFGSOptions):
 
 
 RESIDENT_CHUNK = 10  # iterations between the host's reads when lbfgs() runs the resident driver
-_GRAPH_CACHE_SIZE = 8  # captured iterations kept; each holds a memory pool
 
 
-class _Resident:
-    """One problem's static device state, its iteration body and, on CUDA,
-    that iteration captured into a CUDA graph. Each capture first runs the
-    body once eagerly on a copy of the state (``captures`` counts them: a
-    launch count on the card sees that direction too)."""
-
-    captures = 0
-
-    def __init__(self, problem: Problem, opts: LBFGSOptions, x0: torch.Tensor, aux,
-                 capture: bool):
-        self.opts = opts
-        self.aux = aux
-        self.body = _make_resident_body(problem, opts)
-        self.state = _init_state(problem, opts, x0, aux)
-        self.not_done = _not_done(self.state, opts)
-        self.graph = None
-        self.syncs = 0
-        if capture:
-            self._capture()
-
-    def _capture(self) -> None:
-        # An eager run of the body on a copy of the state first, on a side
-        # stream: cuBLAS, the allocator and the kernels' launch
-        # configurations are set up before capture.
-        warm = _clone(self.state)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.body(warm, self.not_done.clone(), self.aux)
-        torch.cuda.current_stream().wait_stream(side)
-        _Resident.captures += 1
-        # The capture mode ("global") raises on any host sync. A flat
-        # capture first (no IF nodes, never replayed) is where a sync in the
-        # body raises: inside an IF node's body it could not be unwound.
-        with capture(Graph(flat=True)):
-            self.body(warm, self.not_done.clone(), self.aux)
-        del warm
-        self.graph = Graph()
-        with capture(self.graph):
-            self.body(self.state, self.not_done, self.aux)
-
-    def load(self, src: _State) -> None:
-        _copy_state(self.state, src)
-        self.not_done.copy_(_not_done(self.state, self.opts))
-        self.syncs = 0
-
-    def step(self) -> None:
-        if self.graph is not None:
-            self.graph.replay()
-        else:
-            self.body(self.state, self.not_done, self.aux)
-
-
-class _Snapshot:
-    """``(k, nf, ng, not_done)`` copied to the host behind a chunk; the
-    first read waits for it, the chunk's one host sync."""
-
-    def __init__(self, r: _Resident, known: Optional[tuple] = None):
-        self._r, self._values = r, known
-        if known is not None:
-            return
-        s = r.state
-        packed = torch.stack([s.k, s.nf, s.ng, r.not_done.to(torch.int32)])
-        if packed.is_cuda:
-            self._host = torch.empty(4, dtype=torch.int32, pin_memory=True)
-            self._host.copy_(packed, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host, self._event = packed, None
-
-    def values(self) -> tuple[int, int, int, bool]:
-        if self._values is None:
-            if self._event is not None:
-                self._event.synchronize()
-            k, nf, ng, not_done = self._host.tolist()
-            self._values = (k, nf, ng, bool(not_done))
-            self._r.syncs += 1
-        return self._values
-
-
-_GRAPHS: "collections.OrderedDict[tuple, _Resident]" = collections.OrderedDict()
-
-
-def _aux_key(aux) -> tuple:
-    return tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.device) for t in _tensors(aux))
+def _counters(s: _State) -> tuple:
+    return s.k, s.nf, s.ng
 
 
 def _resident(problem: Problem, opts: LBFGSOptions, x0: torch.Tensor, aux,
-              capture: bool) -> _Resident:
+              capture: bool) -> Resident:
     """A captured iteration from the cache (keyed by the problem, the
-    options, x0's shape and the data tensors' storage, which the graph
-    reads at fixed addresses; the entry keeps them alive), else a new one;
-    an uncaptured one is never cached."""
+    options, x0's shape and the data tensors' storage), else a new one; an
+    uncaptured one is never cached."""
+    body = _make_resident_body(problem, opts)
+
+    def make():
+        return Resident([lambda s, not_done: body(s, not_done, aux)],
+                        _init_state(problem, opts, x0, aux),
+                        lambda s: _not_done(s, opts), capture)
+
     if not capture:
-        return _Resident(problem, opts, x0, aux, capture=False)
-    key = (problem, opts, tuple(x0.shape), x0.dtype, x0.device, _aux_key(aux))
-    if key in _GRAPHS:
-        _GRAPHS.move_to_end(key)
-        return _GRAPHS[key]
-    while len(_GRAPHS) >= _GRAPH_CACHE_SIZE:
-        _GRAPHS.popitem(last=False)
-    _GRAPHS[key] = _Resident(problem, opts, x0, aux, capture=True)
-    return _GRAPHS[key]
-
-
-def clear_graph_cache() -> None:
-    """Drop every captured iteration (and the memory pools they hold)."""
-    _GRAPHS.clear()
+        return make()
+    return cached_resident(("lbfgs", problem, opts, tuple(x0.shape), x0.dtype, x0.device,
+                            data_key(aux)), make)
 
 
 def _solve_resident(problem: Problem, x0: Optional[torch.Tensor], aux, opts: LBFGSOptions, *,
@@ -587,8 +474,6 @@ def _solve_resident(problem: Problem, x0: Optional[torch.Tensor], aux, opts: LBF
     (``capture``, CUDA only) or run eagerly with masked writes. ``iters``
     stops the host loop earlier than ``max_iters`` (a warm-up that captures
     the graph of the full solve). Returns ``(result, time_ms)``."""
-    if chunk < 1:
-        raise ValueError(f"chunk must be at least 1, got {chunk}")
     if resume_state is None and x0 is None:
         raise ValueError("x0 is required unless resume_state is given")
     like = x0 if x0 is not None else resume_state.x
@@ -597,36 +482,21 @@ def _solve_resident(problem: Problem, x0: Optional[torch.Tensor], aux, opts: LBF
     with full_f32(), torch.no_grad():
         aux = prepared_aux(problem, aux)
         r = _resident(problem, opts, like, aux, capture)
+        known = None
         if resume_state is None:
             r.load(_init_state(problem, opts, x0, aux))
-            first = _Snapshot(r, known=(0, 1, 1, True))
+            known = (0, 1, 1, True)
         else:
             r.load(resume_state)
             if _use_prefix(problem, opts):
                 # a derived field: recomputed from the restored iterate, never trusted
-                for dst, new in zip(_tensors(r.state.prefix),
-                                    _tensors(problem.line_prefix.init(r.state.x, aux)),
+                for dst, new in zip(tensors(r.state.prefix),
+                                    tensors(problem.line_prefix.init(r.state.x, aux)),
                                     strict=True):
                     dst.copy_(new)
-            first = _Snapshot(r)
-
-        def run_chunk(_snap):
-            for _ in range(chunk):
-                r.step()
-            return _Snapshot(r)
-
-        cb = None
-        if callback is not None:
-            def cb(_snap, elapsed):
-                callback(r.state, elapsed)
-
-        last, time_ms = drive_chunks(
-            run_chunk, first, (), opts.max_iters if iters is None else iters,
-            counter=lambda snap: snap.values()[0],
-            done=lambda snap: not snap.values()[3],
-            callback=cb, pipeline=pipeline,
-        )
-        k, nf, ng, _ = last.values()
+        (k, nf, ng, _), time_ms = drive_resident(
+            r, chunk, opts.max_iters if iters is None else iters, _counters, known,
+            callback=callback, pipeline=pipeline)
         s = r.state
         res = finalize(s.x.clone(), k, s.gnorm < opts.tol, s.f.clone(), s.gnorm.clone(),
                        s.loss_h.clone(), s.gnorm_h.clone(), n_fevals=nf, n_gevals=ng,

@@ -6,10 +6,11 @@ default gradient comes from ``torch.func.grad_and_value`` where the JAX
 package uses ``jax.value_and_grad``. ``aux`` is a tuple of extra operands
 (e.g. the training set ``(x, y)``).
 
-Ported so far: what the L-BFGS paths use, and ``Problem.hess`` in JAX's
-field order (the analytic objectives supply their dense Hessians).
-``BatchProblem``, ``Problem.hvp`` and the default autodiff dense Hessian are
-not ported yet: without a ``hess`` argument ``Problem.hess`` is None.
+Ported so far: what the L-BFGS paths use, ``Problem.hess`` in JAX's field
+order (the analytic objectives supply their dense Hessians), and the
+stochastic solvers' :class:`BatchProblem` with :func:`make_batch_problem`.
+``Problem.hvp`` and the default autodiff dense Hessian are not ported yet:
+without a ``hess`` argument ``Problem.hess`` is None.
 """
 
 from __future__ import annotations
@@ -57,6 +58,38 @@ class Problem(NamedTuple):
     line_fun: Optional[Callable[..., Callable[[torch.Tensor], torch.Tensor]]] = None
     line_prefix: Optional[LinePrefix] = None
     prepare: Optional[Callable[[Any], Any]] = None
+
+
+class BatchProblem(NamedTuple):
+    """A finite-sum objective exposed through per-batch callables
+    ``(w, xb, yb)`` (see :class:`lbfgs_ffnn_tpu.types.BatchProblem`); the
+    index gather lives in ``take_batch``.
+
+    ``fun_masked``/``grad_masked`` also take a ``(b,)`` 0/1 mask and average
+    over the unmasked samples only (the ragged trailing batch of SGD).
+    """
+
+    fun: Callable[..., torch.Tensor]  # (w, xb, yb) -> scalar mean loss (+reg)
+    grad: Callable[..., torch.Tensor]  # (w, xb, yb) -> flat grad of fun
+    value_and_grad: Callable[..., tuple[torch.Tensor, torch.Tensor]]
+    fun_masked: Callable[..., torch.Tensor]  # (w, xb, yb, mask) -> scalar
+    grad_masked: Callable[..., torch.Tensor]
+    per_sample: Callable[..., torch.Tensor]  # (w, xb, yb) -> (b,) losses, no reg
+    reg: Optional[Callable[..., torch.Tensor]] = None  # (w,) -> scalar, or None
+
+    def hvp(self, w: torch.Tensor, v: torch.Tensor, xb: torch.Tensor,
+            yb: torch.Tensor) -> torch.Tensor:
+        """Exact HVP of the batch loss, forward over reverse (``torch.func.jvp``
+        of ``torch.func.grad``)."""
+        return torch.func.jvp(lambda u: self.grad(u, xb, yb), (w,), (v,))[1]
+
+    def fd_hvp(self, w: torch.Tensor, v: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
+               eps: float = 1e-4) -> torch.Tensor:
+        """Central finite-difference HVP, the reference's
+        (src/minimizer/s_lbfgs.hpp:88-101)."""
+        gp = self.grad(w + eps * v, xb, yb)
+        gm = self.grad(w - eps * v, xb, yb)
+        return (gp - gm) / (2.0 * eps)
 
 
 class SolveResult(NamedTuple):
@@ -118,3 +151,54 @@ def make_problem(
             return _lp.restrict(_lp.init(w, aux), _lp.direction(p, aux), w, p, aux)
     return Problem(fun=fun, grad=grad, value_and_grad=value_and_grad, hess=hess,
                    line_fun=line_fun, line_prefix=line_prefix, prepare=prepare)
+
+
+def make_batch_problem(
+    per_sample: Callable[..., torch.Tensor],
+    reg: Optional[Callable[..., torch.Tensor]] = None,
+) -> BatchProblem:
+    """Build a :class:`BatchProblem` from a per-sample loss
+    ``per_sample(w, xb, yb) -> (b,)`` and an optional whole-parameter
+    regularizer ``reg(w)`` added to every batch loss."""
+
+    def fun(w, xb, yb):
+        loss = torch.mean(per_sample(w, xb, yb))
+        return loss + reg(w) if reg is not None else loss
+
+    def fun_masked(w, xb, yb, mask):
+        # Zero the padded rows before per_sample: a where on the loss alone
+        # protects the forward, but the backward's zero cotangent times a NaN
+        # activation is still NaN.
+        xb = zero_masked_rows(mask, xb)
+        yb = zero_masked_rows(mask, yb)
+        ls = per_sample(w, xb, yb)
+        loss = (torch.sum(torch.where(mask > 0, ls, torch.zeros_like(ls)))
+                / torch.clamp(torch.sum(mask), min=1.0))
+        return loss + reg(w) if reg is not None else loss
+
+    def _value_and_grad(f):
+        gv = torch.func.grad_and_value(f)
+
+        def value_and_grad(*args):
+            g, v = gv(*args)
+            return v, g
+
+        return value_and_grad
+
+    return BatchProblem(
+        fun=fun,
+        grad=torch.func.grad(fun),
+        value_and_grad=_value_and_grad(fun),
+        fun_masked=fun_masked,
+        grad_masked=torch.func.grad(fun_masked),
+        per_sample=per_sample,
+        reg=reg,
+    )
+
+
+def zero_masked_rows(mask: torch.Tensor, arr: torch.Tensor) -> torch.Tensor:
+    """Replace the rows of ``arr`` where ``mask == 0`` with zeros, so NaN or
+    Inf padding cannot poison the masked forward or backward."""
+    shape = (mask.shape[0],) + (1,) * (arr.ndim - 1)
+    return torch.where(mask.reshape(shape) > 0, arr, torch.zeros((), dtype=arr.dtype,
+                                                                 device=arr.device))

@@ -1,8 +1,8 @@
 """The port's bench (``python -m lbfgs_ffnn_torch.experiments.bench``) on the
 CPU with ``BENCH_QUICK=1`` at a further-reduced size through its ``sizes``
 hook: one line on stdout, the root bench's contract JSON with a finite
-value; the supplementary rows and one "not ported" line per unported row on
-stderr."""
+value; the supplementary rows (the S-LBFGS row among them) and one "not
+ported" line per unported row on stderr."""
 
 import json
 import math
@@ -12,7 +12,7 @@ from lbfgs_ffnn_torch.experiments import bench
 
 def test_bench_prints_the_contract_line(monkeypatch, capsys):
     monkeypatch.setenv("BENCH_QUICK", "1")
-    out = bench.main(["--device", "cpu"], sizes=bench.Sizes(48, 3, 640, (1, 2)))
+    out = bench.main(["--device", "cpu"], sizes=bench.Sizes(48, 3, 640, (1, 2), sl_epochs=2))
     captured = capsys.readouterr()
     lines = captured.out.strip().splitlines()
     assert len(lines) == 1
@@ -27,3 +27,6 @@ def test_bench_prints_the_contract_line(monkeypatch, capsys):
     assert "bf16 ring parity gate" in err and "deep 784-256-128-64-10 m=100 [f32]" in err
     assert "two-loop m=100 n=640" in err
     assert "seeded labels" in err
+    assert "S-LBFGS N=48 b=256 ms/epoch per seed 124: " in err
+    assert "(reference CPU: 214.7 ms/epoch)" in err and "seed 126: 2 epochs" in err
+    assert "S-LBFGS N=5000 b=256 ms/epoch: not ported" not in err

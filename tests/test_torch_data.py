@@ -98,6 +98,7 @@ def test_port_imports_without_jax():
         "import lbfgs_ffnn_torch.experiments.blocked_stage_study\n"
         "import lbfgs_ffnn_torch.experiments.resident_phase_study\n"
         "import lbfgs_ffnn_torch.ops.control, lbfgs_ffnn_torch.experiments.bench\n"
+        "import lbfgs_ffnn_torch.solvers.slbfgs, lbfgs_ffnn_torch.ops.sampling\n"
         "assert not any(k.startswith(('jax', 'lbfgs_ffnn_tpu')) and sys.modules[k] is not None\n"
         "               for k in sys.modules)\n"
     )

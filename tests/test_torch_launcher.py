@@ -2,8 +2,13 @@
 same data and weights (carried across with ``params_from_numpy``,
 ``reset_params=False``) through ``Launcher.train``, compared on the CSV's
 Loss and GradNorm columns (f64: rtol 1e-9; TimeMs is a wall time and is not
-compared). The runner's ``main(argv)`` runs at a tiny size on the CPU, from
-IDX label files written here."""
+compared), for GD, Armijo L-BFGS (the cuda style) and Wolfe L-BFGS (the cpu
+style). S-LBFGS draws its batches from the port's own stream, so its
+Launcher is held to the JAX Launcher's options and runs. The runner's
+``main(argv)`` runs at a tiny size on the CPU, from IDX label files written
+here."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -101,11 +106,11 @@ def test_launcher_runs_on_cuda_unless_told_otherwise():
 
 
 @pytest.mark.parametrize("solver,kw", [
-    ("sgd", {}), ("slbfgs", {}),
+    ("sgd", {}), ("slbfgs", {"compute_dtype": "bfloat16"}),
     ("gd", {"timed_chunks": 10}), ("lbfgs", {"compute_dtype": "bfloat16"}),
     ("lbfgs", {"prefix_dtype": "bfloat16"}), ("lbfgs", {"grad_input_dtype": "bfloat16"}),
     ("lbfgs", {"line_input_dtype": "uint8"}), ("gd", {"fun_input_dtype": "uint8"}),
-    ("lbfgs", {"ls_alpha_init": "warm"}), ("lbfgs", {"line_search": "wolfe"}),
+    ("lbfgs", {"ls_alpha_init": "warm"}), ("lbfgs", {"line_search": "wolfe", "timed_chunks": 5}),
     ("lbfgs", {"line_search": "armijo_batched"}), ("lbfgs", {"pair_dtype": "float16"}),
 ])
 def test_unported_options_raise(solver, kw, tmp_path):
@@ -116,11 +121,76 @@ def test_unported_options_raise(solver, kw, tmp_path):
 
 
 def test_cpu_style_lbfgs_needs_wolfe(tmp_path):
+    """The cpu style's L-BFGS is the Wolfe search with the reference CPU's
+    50 trials; the cuda style's Armijo has 20."""
     _, tl = _both("cpu")
     tl.out_dir = tmp_path
-    with pytest.raises(NotImplementedError):
-        tl.train("lbfgs", UnifiedConfig(max_iters=2), verbose=False)
+    opts = tl._lbfgs_opts(UnifiedConfig(max_iters=2))
+    assert (opts.line_search, opts.ls_max_iters) == ("wolfe", 50)
+    assert tl.train("lbfgs", UnifiedConfig(max_iters=2), verbose=False).result.n_iters == 2
     assert tl.train("gd", UnifiedConfig(max_iters=2, write_csv=False), verbose=False).csv_path is None
+    _, tc = _both("cuda")
+    opts = tc._lbfgs_opts(UnifiedConfig(max_iters=2))
+    assert (opts.line_search, opts.ls_max_iters) == ("armijo", 20)
+
+
+def test_cpu_style_wolfe_matches_jax_launcher(tmp_path, monkeypatch):
+    """Launcher().train("lbfgs", UnifiedConfig()) runs the Wolfe search: its
+    history equals the JAX Launcher's cpu style."""
+    monkeypatch.chdir(tmp_path)
+    jl, tl = _both("cpu")
+    kw = dict(max_iters=25, tolerance=1e-12, log_interval=1, reset_params=False, m_param=5)
+    rj = jl.train("lbfgs", JConfig(name="J", **kw), verbose=False)
+    rt = tl.train("lbfgs", UnifiedConfig(name="T", **kw), verbose=False)
+    hj, ht = j_read(rj.csv_path), read_history_csv(rt.csv_path)
+    assert ht.n == hj.n == 25
+    np.testing.assert_allclose(ht.loss, hj.loss, rtol=1e-9)
+    np.testing.assert_allclose(ht.gnorm, hj.gnorm, rtol=1e-9)
+    np.testing.assert_allclose(tl.weights.numpy(), np.asarray(jl.weights), rtol=1e-8, atol=1e-10)
+    assert Launcher(device="cpu").backend_style == "cpu"
+
+
+@pytest.mark.parametrize("kw", [{}, {"batch_size": 32, "L_param": 3, "b_H_param": 12,
+                                     "lam": 1e-3, "m_param": 4, "pair_dtype": "bfloat16"}])
+def test_slbfgs_options_match_jax_launcher(kw):
+    """The Launcher maps a config to S-LBFGS options as the JAX Launcher's
+    _slbfgs_opts does (lam 1e-4 when 0, m_inner = N // batch_size, b_H =
+    batch_size // 2 when 0), on the same defaults."""
+    jl, tl = _both("cpu")
+    jo = jl._slbfgs_opts(JConfig(max_iters=7, **kw), N=200)
+    to = tl._slbfgs_opts(UnifiedConfig(max_iters=7, **kw))
+    for field in to._fields:
+        if field != "two_loop_impl":  # "cuda" here, "xla" there: each package's default
+            assert getattr(to, field) == getattr(jo, field), field
+    lam = kw.get("lam", 1e-4)
+    w = torch.tensor(np.linspace(-1, 1, tl.spec.n_params))
+    assert float(tl._batch_problem(UnifiedConfig(**kw)).reg(w)) == pytest.approx(
+        0.5 * lam * float(w @ w), rel=1e-12)
+    for name in ("batch_size", "L_param", "b_H_param", "lam"):
+        assert getattr(UnifiedConfig(), name) == getattr(JConfig(), name)
+
+
+@pytest.mark.parametrize("timed_chunks", [0, 4])
+def test_launcher_trains_slbfgs(tmp_path, timed_chunks):
+    """Launcher().train("slbfgs", ...) on the CPU: one CSV row per epoch,
+    the loss falls, the same solve chunked or not."""
+    _, tl = _both("cpu")
+    tl.out_dir = tmp_path
+    cfg = UnifiedConfig(name=f"S{timed_chunks}", max_iters=6, batch_size=40, log_interval=1,
+                        learning_rate=0.02, tolerance=1e-12, reset_params=False,
+                        timed_chunks=timed_chunks)
+    w0 = tl.weights.clone()
+    rep = tl.train("slbfgs", cfg, verbose=False)
+    h = read_history_csv(rep.csv_path)
+    assert rep.result.n_iters == 6 and h.n == 6 and np.all(np.isfinite(h.loss))
+    assert h.loss[-1] < float(tl._batch_problem(cfg).fun(w0, tl._x, tl._y))
+    if timed_chunks:
+        assert len(np.unique(h.time_ms)) == 2 and np.all(np.diff(h.time_ms) >= 0)
+    assert rep.warmup_iters == (0 if timed_chunks else 2)
+    tl.weights = w0
+    other = tl.train("slbfgs", dataclasses.replace(cfg, timed_chunks=4 - timed_chunks),
+                     verbose=False)
+    assert torch.equal(other.result.x, rep.result.x)
 
 
 @pytest.mark.parametrize("log_interval", [1, 3])
@@ -171,10 +241,14 @@ def test_runner_filters_and_styles(fashion_root, capsys):
     done = run_mnist.main(base + ["--only", "LBFGS_m10", "--plain-two-loop"])  # a substring
     assert [(s, c.name, c.two_loop_impl) for s, c, _ in done] == [
         ("lbfgs", "FASHION_LBFGS_m10", "plain"), ("lbfgs", "FASHION_LBFGS_m100", "plain")]
-    done = run_mnist.main(base + ["--style", "cpu"])
-    assert [c.name for _, c, _ in done] == ["FASHION_Unified_GD"]
-    assert ("FASHION_LBFGS (Wolfe L-BFGS through the Launcher, ROADMAP queue 1 item 5)"
-            in capsys.readouterr().out)
+    done = run_mnist.main(base + ["--style", "cpu", "--timed-chunks", "1"])
+    assert [c.name for _, c, _ in done] == ["FASHION_Unified_GD", "FASHION_SLBFGS",
+                                            "FASHION_LBFGS"]
+    assert "FASHION_SGD (SGD, ROADMAP queue 1 item 7)" in capsys.readouterr().out
+    sl = done[1][1]
+    assert (sl.batch_size, sl.m_param, sl.L_param, sl.b_H_param, sl.learning_rate,
+            sl.timed_chunks) == (256, 10, 10, 128, 0.02, 1)
+    assert done[1][2].result.n_iters == 2 and done[2][1].timed_chunks == 0
     with pytest.raises(SystemExit):
         run_mnist.main(base + ["--only", "nothing-matches"])
     with pytest.raises(SystemExit):  # --data-root is required

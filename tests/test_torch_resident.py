@@ -33,7 +33,7 @@ from lbfgs_ffnn_torch.objectives import mlp as tmlp
 from lbfgs_ffnn_torch.ops.linesearch import (
     armijo_quad_line_search as t_armijo, armijo_quad_line_search_device as t_armijo_device,
 )
-from lbfgs_ffnn_torch.solvers.common import drive_chunks
+from lbfgs_ffnn_torch.solvers.common import clone, drive_chunks
 
 tl = importlib.import_module("lbfgs_ffnn_torch.solvers.lbfgs")  # the module, not lbfgs()
 
@@ -230,7 +230,7 @@ def test_resume_equals_uninterrupted_run():
     opts = _opts(tl.LBFGSOptions, "f32-ring")
     kept = []
     full, _ = tl.lbfgs_chunked(tp, tw, taux, opts, chunk=5,
-                               callback=lambda s, elapsed: kept.append(tl._clone(s)))
+                               callback=lambda s, elapsed: kept.append(clone(s)))
     state = kept[1]
     k0 = int(state.k)
     assert 0 < k0 < MAX_ITERS
