@@ -67,10 +67,13 @@ Phases, each printing its lines (any failure raises and exits non-zero):
  10. large    - L-BFGS (m=50, f32) on the extended Rosenbrock at
                 n=2,000,000 through the harness (lbfgs_ffnn_torch.harness),
                 120 iterations under Armijo (ls_max_iters=20) and under
-                Wolfe, each through K3, through the plain two-loop, and with
-                the bf16 ring through the kernel the dispatch picks (K3);
-                the kernels must run once per direction, the kernel and
-                plain solves agree
+                Wolfe (both on the resident driver), each through K3,
+                through the plain two-loop, and with the bf16 ring through
+                the kernel the dispatch picks (K3); the kernels must run
+                once per direction, the kernel and plain solves agree, and
+                each search's resident solve agrees with the early-exit
+                loop's (first 5 losses to rtol 1e-3; its ms/iter and host
+                syncs printed beside)
  11. bench    - python -m lbfgs_ffnn_torch.experiments.bench in a process of
                 its own (the 1000-iteration headline, its supplementary rows
                 on stderr); its one stdout line must be the contract JSON
@@ -89,21 +92,45 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 samples at its defaults (b=128, 468 inner steps), 3
                 epochs, with the time of its capture. --profile adds the
                 device idle share and K1's device us per call on this path
- 13. result   - one JSON line with the three kernels' numbers (K1's launches
-                summed over its two paths, each also by path; K2's with its
-                group size, K3's with its prefetch distance and its time at
-                each distance), then the last line {"ok": true, "device": {...}}
+ 13. pinn     - the PINN path: K2 on the Burgers ring (m=100, n=921, one
+                block, k = 8) and K1 on the oscillator's (m=16, n=481)
+                against the plain version and timed beside it; (a) Burgers
+                at full width (2-20-20-20-1, the full 2001/402/10,251-point
+                grid, f32, m=100, Wolfe with 100 lean trials, relative
+                curvature gate 1e-6) through K2: the captured solve (its
+                trials a CUDA graph WHILE node) equals the eager body
+                bitwise over 10 iterations, K2 once per iteration, the
+                first 5 losses equal the plain two-loop's and the early-exit
+                loop's to rtol 1e-4, host syncs <= ceil(10 / 10) + 2; ms/iter
+                captured and early-exit, trials/iter, capture time, peak
+                memory; (b) the Burgers runner
+                (lbfgs_ffnn_torch.experiments.run_burgers) at its defaults,
+                5000 iterations, its CSV held to the FD gate (mean |u - u_FD|
+                <= 0.02 at t = 0, 0.5, 1.0), K2 launches counted; (c) the
+                oscillator runner (run_oscillator --reps 1, 1-20-20-1,
+                m=16, Wolfe with 50 fused trials, 2000 iterations) through
+                K1: max |u - sin| <= 0.05, K1 launches counted; the phase's
+                time
+ 14. result   - one JSON line with the three kernels' numbers (K1's launches
+                summed over its three paths, K2's over its two, each also by
+                path, with the PINN ring's numbers; K2's with its group
+                size, K3's with its prefetch distance and its time at each
+                distance), then the last line {"ok": true, "device": {...}}
 
-The Armijo solves of phases 7-10 and the S-LBFGS solves of phase 12 run on
-the resident driver; their host syncs are held to ceil(iters / chunk) + 2,
-and every launch count is read from the kernels' counters on the device.
+The L-BFGS solves of phases 7-10 and 13 (Armijo and Wolfe) and the S-LBFGS
+solves of phase 12 run on the resident driver; their host syncs are held to
+ceil(iters / chunk) + 2, and every launch count is read from the kernels'
+counters on the device.
 
 --profile adds torch.profiler readings: each kernel's device time per call
 in the dispatch table, and the device time by kernel of 10 MNIST iterations,
 of the 100-iteration resident MNIST solve,
-of the whole deep L-BFGS m=100 f32 solve and of the whole large Rosenbrock
-Armijo solve through K3, each beside the wall time of the same solve
-unprofiled, with the two-loop kernel's device time per iteration.
+of the whole deep L-BFGS m=100 f32 solve, of the whole large Rosenbrock
+Armijo solve through K3 and of the Burgers (200 iterations captured, 10
+early-exit) and oscillator (200 iterations) solves, each beside the wall
+time of the same solve unprofiled, with the two-loop kernel's device time
+per iteration; and the 100-iteration captured Burgers solve in both of the
+residual's formulations ("vmap", the default, and "batched").
 
 Imports nothing of JAX. Full f32 throughout: TF32 is switched off.
 """
@@ -140,6 +167,8 @@ SEED = 123
 SL_N, SL_B, SL_BH, SL_L = 5_000, 256, 128, 10  # the port bench's S-LBFGS row
 SL_EPOCHS = 30
 LAUNCHER_EPOCHS = 3  # the Launcher's S-LBFGS on all N_TRAIN samples
+PINN_CHECK_ITERS = 10  # Burgers iterations held captured = eager body bitwise
+BURGERS_ITERS = 5000   # the Burgers runner's default depth
 KERNEL_REL_TOL = 1e-4  # max|kernel - plain| / max|plain|, f32 reduction order
 ERR_RATIO = 2.0        # kernel's f64-referenced error vs the plain f32 one's
 LOSS_GATE = 0.02       # final losses within 2% (the bench's quality gate)
@@ -961,7 +990,9 @@ def large_phase(torch, dev, profile: bool, n=N_LARGE, iters=LARGE_ITERS, m=M_LAR
     from lbfgs_ffnn_torch.ops.cuda_two_loop import (
         BLOCKED, STREAMING, group_size, kernel_dispatch, two_loop_cuda,
     )
-    from lbfgs_ffnn_torch.solvers.lbfgs import RESIDENT_CHUNK, LBFGSOptions, clear_graph_cache, lbfgs
+    from lbfgs_ffnn_torch.solvers.lbfgs import (
+        RESIDENT_CHUNK, LBFGSOptions, _lbfgs_loop, clear_graph_cache, lbfgs, lbfgs_warm_up,
+    )
 
     problem = rosenbrock_problem()
     x0 = rosenbrock_start(n, torch.float32, dev)
@@ -980,9 +1011,9 @@ def large_phase(torch, dev, profile: bool, n=N_LARGE, iters=LARGE_ITERS, m=M_LAR
     variants = {"cuda": {}, "plain": {"two_loop_impl": "plain"}, "bf16": {"pair_dtype": "bfloat16"}}
     opts = {f"{ls}-{v}": LBFGSOptions(max_iters=iters, tol=1e-12, m=m, **kw, **extra)
             for ls, kw in searches.items() for v, extra in variants.items()}
-    for o in opts.values():  # warm-up: cuBLAS, allocator, kernel configs, and the
-        # Armijo solves' captured iterations (a solve of their own options)
-        lbfgs(problem, x0, (), o if o.line_search == "armijo" else o._replace(max_iters=3))
+    for o in opts.values():  # warm-up: cuBLAS, allocator, kernel configs, and each
+        # solve's captured iteration
+        lbfgs_warm_up(problem, x0, (), o)
     if dev.type == "cuda":
         torch.cuda.synchronize()
 
@@ -1017,10 +1048,9 @@ def large_phase(torch, dev, profile: bool, n=N_LARGE, iters=LARGE_ITERS, m=M_LAR
             f"events, harness), n_fevals {res.n_fevals}, n_gevals {res.n_gevals}, host syncs "
             f"{res.n_host_syncs} ({res.n_host_syncs / res.n_iters:.2f}/iter), launches "
             f"{launches[name]} on {rec.device}")
-    for name, res in results.items():
-        if name.startswith("armijo"):  # the resident driver
-            bound = -(-res.n_iters // RESIDENT_CHUNK) + 2
-            check(res.n_host_syncs <= bound, f"{name}: {res.n_host_syncs} host syncs > {bound}")
+    for name, res in results.items():  # every solve on the resident driver
+        bound = -(-res.n_iters // RESIDENT_CHUNK) + 2
+        check(res.n_host_syncs <= bound, f"{name}: {res.n_host_syncs} host syncs > {bound}")
     f64 = {}  # the f64 plain solve's final loss, per search, where it judges
     for ls in searches:
         rk, rp, rb = (results[f"{ls}-{v}"] for v in variants)
@@ -1047,10 +1077,24 @@ def large_phase(torch, dev, profile: bool, n=N_LARGE, iters=LARGE_ITERS, m=M_LAR
             how += (f" exceeded: f32 order moves the trajectory, so the f64 plain solve on the "
                     f"card ({f64[ls]:.6g}) judges: |kernel - f64| {d_k:.4g} <= 2 x "
                     f"|plain f32 - f64| {d_p:.4g}")
+        # the early-exit loop, the resident driver's reference
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rl = _lbfgs_loop(problem, x0, (), opts[f"{ls}-cuda"])
+        end.record()
+        torch.cuda.synchronize()
+        first_l = rl.loss_history[:5].cpu().numpy()
+        check(np.allclose(first_k, first_l, rtol=1e-3, atol=0),
+              f"{ls}: first 5 losses resident {first_k} vs early-exit loop {first_l}")
+        ll = float(rl.final_loss)
         say("large", f"{ls}: K3 launches {launches[f'{ls}-cuda'][BLOCKED]} = {rk.n_iters} "
             f"directions; first 5 losses agree to rtol 1e-3; final kernel {lk:.9g} vs plain "
             f"{lp:.9g} ({how}); bf16 ring through {bf16_pick} {lb:.9g} "
-            f"({abs(lb - lk) / lk * 100:.3e}% from f32)")
+            f"({abs(lb - lk) / lk * 100:.3e}% from f32); the early-exit loop (same options): "
+            f"first 5 losses = the resident solve's to rtol 1e-3, final {ll:.9g}, "
+            f"{start.elapsed_time(end) / rl.n_iters:.3f} ms/iter (CUDA events), "
+            f"{rl.n_host_syncs / rl.n_iters:.2f} host syncs/iter against the resident "
+            f"{rk.n_host_syncs / rk.n_iters:.2f}")
     if profile:
         _profile(torch, lambda: lbfgs(problem, x0, (), opts["armijo-cuda"]))
     clear_graph_cache()
@@ -1249,6 +1293,235 @@ def stochastic_phase(torch, dev, profile: bool, mnist_root):
     return launches[COOPERATIVE], ms_epoch, k1_us
 
 
+def _pinn_ring(torch, ttl, dev, m, n, impl, label):
+    """One PINN ring shape on its kernel: the dispatch's pick checked, the
+    kernel against the plain version (empty, partial, full, wrapped rings,
+    clamp off and on), then timed as the table phase times a ring (CUDA
+    events, L2 flushed, min of 2 in turns with the plain loop) with its
+    profiler device time and bound. Returns its kernel-JSON numbers."""
+    import functools
+
+    from lbfgs_ffnn_torch.ops.cuda_two_loop import STREAMING, group_size, kernel_dispatch, launch
+
+    rings = _rings(torch, ttl, m, n, (0, m // 3, m, m + 3), torch.float32, dev, seed=7)
+    n_pad = rings[0].S.shape[1]
+    picked = kernel_dispatch(n_pad, m, torch.float32)[0]
+    check(picked == impl, f"{label} ring m={m} n={n}: dispatch picks {picked}, not {impl}")
+    k = group_size(n_pad, m, 4) if impl == STREAMING else None
+    v = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+    worst = _agreement(torch, ttl, {f" {label}": (functools.partial(launch, impl), None)},
+                       "pinn", v, rings, m, n, "f32")[f" {label}"]
+    hist = rings[m + 3]
+    flush = torch.empty(64 * 1024 * 1024, device=dev)
+    fns = {"kernel": lambda: launch(impl, v, hist), "plain": lambda: ttl.two_loop(v, hist)}
+    for fn in fns.values():
+        _time_cold_ms(torch, fn, flush, reps=5)
+    times = {key: [] for key in fns}
+    for key in list(fns) + list(fns)[::-1]:
+        times[key].append(_time_cold_ms(torch, fns[key], flush))
+    ms = {key: min(t) for key, t in times.items()}
+    device_us = _kernel_device_us(torch, fns["kernel"], flush)
+    b_ms, b_by = bound(n, m, 4)
+    del flush
+    reductions = (f", {2 * -(-m // k)} grid reductions per call at k={k}" if k else
+                  ", 2 grid reductions per call")
+    say("pinn", f"{label} ring m={m} n={n} (n_pad {n_pad}, one block){reductions}: "
+        f"{impl} {ms['kernel'] * 1e3:.1f} us ({device_us:.1f} device, profiler), plain "
+        f"{ms['plain'] * 1e3:.1f} us, bound {b_ms * 1e3:.3f} us ({b_by}, history read once; "
+        f"the ring fits the L2); runs {[round(t * 1e3, 1) for t in times['kernel']]}, "
+        f"{TIMED_CALLS} calls each, L2 flushed before each")
+    return {"m": m, "n": n, "group": k, "max_abs_err": worst, "ms": ms["kernel"],
+            "device_ms": device_us / 1e3, "plain_ms": ms["plain"], "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def pinn_phase(torch, dev, profile: bool, burgers_iters=BURGERS_ITERS):
+    """The PINN path at full width: (a) Burgers (2-20-20-20-1, the full
+    grid, f32, m = 100, Wolfe with 100 lean trials) through K2, the
+    captured solve against the eager body, the plain two-loop and the
+    early-exit loop; (b) the runner's own solve and the FD gate; (c) the
+    oscillator runner through K1. Each counted run's launches are counted
+    from 0 just before it and read just after it."""
+    import importlib
+
+    import lbfgs_ffnn_torch.ops.two_loop  # noqa: F401
+    from lbfgs_ffnn_torch.experiments import burgers_validate, run_burgers, run_oscillator
+    from lbfgs_ffnn_torch.objectives.mlp import mlp_spec
+    from lbfgs_ffnn_torch.objectives.pinn import (
+        burgers_points, burgers_problem, default_burgers_spec, oscillator_problem, pinn_init,
+    )
+    from lbfgs_ffnn_torch.ops.cuda_two_loop import COOPERATIVE, STREAMING, two_loop_cuda
+    from lbfgs_ffnn_torch.solvers.common import Resident
+
+    sl = importlib.import_module("lbfgs_ffnn_torch.solvers.lbfgs")
+    ttl = sys.modules["lbfgs_ffnn_torch.ops.two_loop"]
+    t_phase = time.perf_counter()
+    rings = {"K2": _pinn_ring(torch, ttl, dev, 100, 921, STREAMING, "K2 Burgers"),
+             "K1": _pinn_ring(torch, ttl, dev, 16, 481, COOPERATIVE, "K1 oscillator")}
+
+    # (a) Burgers at full width through K2
+    spec = default_burgers_spec()
+    problem = burgers_problem(spec)
+    pts = burgers_points(device=dev)
+    w0 = pinn_init(spec, torch.Generator().manual_seed(SEED), torch.float32, device=dev)
+    f0 = float(problem.fun(w0, pts))
+    opts = run_burgers.options(PINN_CHECK_ITERS, False)
+    say("pinn", f"Burgers: 2-20-20-20-1 tanh (n = {spec.n_params}), IC {pts.ic_xt.shape[0]}, "
+        f"BC {pts.bc_xt.shape[0]}, collocation {pts.col_xt.shape[0]} points, f32, m = 100, "
+        f"Wolfe with {opts.ls_max_iters} lean trials, rel curvature gate "
+        f"{opts.curvature_rel_eps}; initial loss {f0:.6g}")
+    sl.clear_graph_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eager = sl._lbfgs_resident_eager(problem, w0, pts, opts)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    captures = Resident.captures
+    sl.lbfgs(problem, w0, pts, opts)  # captures the iteration
+    capture_s = Resident.last_capture_s
+    check(Resident.captures == captures + 1, "the first captured Burgers solve did not capture")
+    _reset(two_loop_cuda.LAUNCHES)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = sl.lbfgs(problem, w0, pts, opts)
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(two_loop_cuda.LAUNCHES)
+    captured_ms = start.elapsed_time(end) / res.n_iters
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plain = sl.lbfgs(problem, w0, pts, opts._replace(two_loop_impl="plain", max_iters=5))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = sl._lbfgs_loop(problem, w0, pts, opts)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / loop.n_iters
+    check(res.n_iters == eager.n_iters == PINN_CHECK_ITERS, f"Burgers: {res.n_iters} iterations "
+          f"captured, {eager.n_iters} eager, not {PINN_CHECK_ITERS}")
+    check(all(bool(torch.isfinite(t).all()) for t in (res.x, res.loss_history)),
+          "Burgers: non-finite iterate or loss")
+    check(float(res.final_loss) < f0, "Burgers: the loss did not fall")
+    bitwise = {k: torch.equal(getattr(res, k), getattr(eager, k))
+               for k in ("x", "loss_history", "gnorm_history")}
+    check(all(bitwise.values()) and (res.n_fevals, res.n_gevals) == (eager.n_fevals,
+                                                                        eager.n_gevals),
+          f"Burgers: captured != eager body (bitwise {bitwise}, counters "
+          f"{(res.n_fevals, res.n_gevals)} vs {(eager.n_fevals, eager.n_gevals)})")
+    check(launches == {k: res.n_iters * (k == STREAMING) for k in launches},
+          f"Burgers: launches {launches} != {res.n_iters} directions through K2 (device count)")
+    sync_bound = -(-res.n_iters // sl.RESIDENT_CHUNK) + 2
+    check(res.n_host_syncs <= sync_bound, f"Burgers: {res.n_host_syncs} host syncs > {sync_bound}")
+    first_c, first_p = res.loss_history[:5].cpu().numpy(), plain.loss_history[:5].cpu().numpy()
+    check(np.allclose(first_c, first_p, rtol=1e-4, atol=0),
+          f"Burgers: first 5 losses kernel {first_c} vs plain {first_p}")
+    first_l = loop.loss_history[:5].cpu().numpy()
+    check(np.allclose(first_c, first_l, rtol=1e-4, atol=0),
+          f"Burgers: first 5 losses captured {first_c} vs early-exit loop {first_l}")
+
+    def trials(r):  # lean: each later iteration adds its trials + 1 fevals
+        return (r.n_fevals - 2) / max(r.n_iters - 1, 1) - 1
+
+    say("pinn", f"Burgers (a), {res.n_iters} iterations: captured = eager body bitwise "
+        f"{bitwise}, counters equal (n_fevals {res.n_fevals}, n_gevals {res.n_gevals}); K2 "
+        f"launches (device count) {launches} = {res.n_iters} directions; first 5 losses = "
+        f"plain two-loop's and the early-exit loop's to rtol 1e-4; host syncs "
+        f"{res.n_host_syncs} <= {sync_bound}; loss {f0:.6g} -> {float(res.final_loss):.6g}; "
+        f"{captured_ms:.3f} ms/iter captured (CUDA events), early-exit loop {loop_ms:.3f} ms/iter "
+        f"(host clock, {loop.n_host_syncs / loop.n_iters:.2f} host syncs/iter), eager body "
+        f"{eager_s * 1e3 / eager.n_iters:.1f} ms/iter; {trials(res):.2f} trials/iter; capture "
+        f"{capture_s:.2f} s (eager warm-up, flat check and capture); peak device memory "
+        f"{peak:.3f} GiB")
+    if profile:
+        # 200 captured iterations (their own graph), 10 of the early-exit
+        # loop, and the same 100-iteration captured solve per formulation
+        _profile(torch, lambda: sl.lbfgs(problem, w0, pts, opts._replace(max_iters=200)))
+        _profile(torch, lambda: sl._lbfgs_loop(problem, w0, pts, opts))
+        o100 = opts._replace(max_iters=100)
+        for form in ("vmap", "batched"):
+            fprob = burgers_problem(spec, formulation=form)
+            sl.lbfgs(fprob, w0, pts, o100)  # captures
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            r = sl.lbfgs(fprob, w0, pts, o100)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / r.n_iters
+            evals = (r.n_fevals + r.n_gevals) / r.n_iters
+            say("pinn", f"Burgers formulation={form!r}: {r.n_iters} captured iterations "
+                f"{ms:.4f} ms/iter, {trials(r):.2f} trials/iter, {ms / evals:.4f} ms per "
+                f"evaluation (jvp trial or value-and-gradient), final loss "
+                f"{float(r.final_loss):.6g}")
+    sl.clear_graph_cache()
+
+    # (b) the runner's own solve at its defaults, and the FD gate
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = str(Path(tmp) / "burgers_test_extrapolation.csv")
+        argv = ["--out", csv] + ([] if burgers_iters == 5000 else ["--iters", str(burgers_iters)])
+        say("pinn", f"Burgers (b): python -m lbfgs_ffnn_torch.experiments.run_burgers "
+            f"{' '.join(argv)}")
+        _reset(two_loop_cuda.LAUNCHES)
+        captures = Resident.captures
+        t0 = time.perf_counter()
+        run = run_burgers.main(argv)
+        runner_s = time.perf_counter() - t0
+        launches_b = dict(two_loop_cuda.LAUNCHES)
+        rb, warm = run["result"], run["warmup"]
+        captures = Resident.captures - captures
+        want = warm.n_iters + rb.n_iters + captures
+        check(launches_b == {k: want * (k == STREAMING) for k in launches_b},
+              f"Burgers runner: launches {launches_b} != {want} directions through K2 "
+              f"({warm.n_iters} warm-up, {rb.n_iters} timed, {captures} capture)")
+        sync_bound = -(-rb.n_iters // sl.RESIDENT_CHUNK) + 2
+        check(rb.n_host_syncs <= sync_bound,
+              f"Burgers runner: {rb.n_host_syncs} host syncs > {sync_bound}")
+        check(bool(torch.isfinite(rb.x).all()), "Burgers runner: non-finite iterate")
+        gate = burgers_validate.errors(csv)
+        means = {t: float(e.mean()) for t, e in gate.items()}
+        say("pinn", "Burgers (b) FD gate: " + ", ".join(
+            f"t={t}: mean {m:.4f} max {float(gate[t].max()):.4f}" for t, m in means.items())
+            + f" (limit mean <= {burgers_validate.MEAN_TOL})")
+        check(all(m <= burgers_validate.MEAN_TOL for m in means.values()),
+              f"Burgers runner: the FD gate failed: {means}")
+    say("pinn", f"Burgers (b): {rb.n_iters} iterations, loss {float(rb.final_loss):.6g}, "
+        f"{run['ms_iter']:.4f} ms/iter (CUDA events), {trials(rb):.2f} trials/iter, host syncs "
+        f"{rb.n_host_syncs}, capture {run['capture_s']:.2f} s; K2 launches {launches_b}; "
+        f"runner wall {runner_s:.1f} s")
+
+    # (c) the oscillator runner through K1, one timed solve: its default three
+    # fresh-seed reps take ~40 s each on an H100 (~30 fused trials/iter)
+    say("pinn", "oscillator (c): python -m lbfgs_ffnn_torch.experiments.run_oscillator "
+        "--reps 1 (the runner's defaults otherwise: 1-20-20-1, m=16, 2000 iterations, tol "
+        "1e-6; one timed solve instead of three)")
+    _reset(two_loop_cuda.LAUNCHES)
+    captures = Resident.captures
+    osc = run_oscillator.main(["--reps", "1"])
+    launches_c = dict(two_loop_cuda.LAUNCHES)
+    captures = Resident.captures - captures
+    want = osc["iters_run"] + captures
+    check(launches_c == {k: want * (k == COOPERATIVE) for k in launches_c},
+          f"oscillator: launches {launches_c} != {want} directions through K1")
+    check(osc["passed"], f"oscillator: max |u - sin| = {osc['max_err']:.4g} > "
+          f"{run_oscillator.MAX_ERR}")
+    ro = osc["result"]
+    say("pinn", f"oscillator (c): {ro.n_iters} iterations, loss {float(ro.final_loss):.6g}, "
+        f"max |u - sin| {osc['max_err']:.4g} <= {run_oscillator.MAX_ERR}, "
+        f"{osc['ms_iter']:.4f} ms/iter (CUDA events), "
+        f"{(ro.n_fevals - 2) / max(ro.n_iters - 1, 1):.2f} fused trials/iter, host syncs "
+        f"{ro.n_host_syncs}; K1 launches {launches_c} = {osc['iters_run']} iterations + "
+        f"{captures} capture")
+    if profile:
+        xs = torch.arange(0.0, 6.28, 0.1, device=dev).reshape(-1, 1)
+        ospec = mlp_spec([1, 20, 20, 1], ["tanh", "tanh", "linear"])
+        oprob = oscillator_problem(ospec, w_ode=float(xs.shape[0]))
+        ow0 = pinn_init(ospec, torch.Generator().manual_seed(SEED), device=dev)
+        oopts = sl.LBFGSOptions(max_iters=200, tol=1e-6, m=16)
+        _profile(torch, lambda: sl.lbfgs(oprob, ow0, xs, oopts))
+    sl.clear_graph_cache()
+    say("pinn", f"phase time {time.perf_counter() - t_phase:.1f} s")
+    return {"K2": (launches_b[STREAMING], rings["K2"]), "K1": (launches_c[COOPERATIVE], rings["K1"]),
+            "burgers_ms": run["ms_iter"], "oscillator_ms": osc["ms_iter"]}
+
+
 def bench_phase():
     """The port's bench (python -m lbfgs_ffnn_torch.experiments.bench) in a
     process of its own: its last stdout line must be the contract JSON with
@@ -1299,6 +1572,7 @@ def main() -> None:
     launches3, large_ms = large_phase(torch, dev, args.profile)
     bench = bench_phase()
     launches_sl, sl_ms, sl_k1_us = stochastic_phase(torch, dev, args.profile, args.mnist_root)
+    pinn = pinn_phase(torch, dev, args.profile)
 
     def entry(name, impl, replaces, launches, worst, m, n):
         ms, b_ms, b_by, _, k_pick, d_pick = table[m, n, "f32"]
@@ -1316,14 +1590,22 @@ def main() -> None:
                                      if k.startswith(BLOCKED)}
         return out
 
+    k1_pinn, k1_ring = pinn["K1"]
+    k2_pinn, k2_ring = pinn["K2"]
     k1 = entry("two_loop_cooperative", COOPERATIVE, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:173",
-               launches1r + launches_sl, worst1, M, n)
-    # K1 runs on two main paths, each counted from 0 just before its solve
-    k1["launches_by_path"] = {"resident L-BFGS": launches1r, "stochastic S-LBFGS": launches_sl}
+               launches1r + launches_sl + k1_pinn, worst1, M, n)
+    # K1 and K2 run on several main paths, each counted from 0 just before its
+    # solve; their PINN ring shapes are timed in the pinn phase
+    k1["launches_by_path"] = {"resident L-BFGS": launches1r, "stochastic S-LBFGS": launches_sl,
+                              "PINN oscillator": k1_pinn}
+    k1["pinn_ring"] = k1_ring
+    k2 = entry("two_loop_streaming", STREAMING, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:81",
+               launches2 + k2_pinn, worst2, M_DEEP, _n_params(DEEP_DIMS))
+    k2["launches_by_path"] = {"deep Fashion L-BFGS": launches2, "PINN Burgers": k2_pinn}
+    k2["pinn_ring"] = k2_ring
     kernels = [
         k1,
-        entry("two_loop_streaming", STREAMING, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:81",
-              launches2, worst2, M_DEEP, _n_params(DEEP_DIMS)),
+        k2,
         entry("two_loop_blocked", BLOCKED, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:230",
               launches3, worst3, M_LARGE, N_LARGE),
     ]
@@ -1337,6 +1619,8 @@ def main() -> None:
         + "; diag n=4M m=50 ms/call: " + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in diag.items())
         + "; S-LBFGS N=5000 ms/epoch: " + ", ".join(f"{k} {v:.4f}" for k, v in sl_ms.items())
         + (f" (K1 {sl_k1_us:.2f} us device/call)" if sl_k1_us is not None else "")
+        + f"; PINN ms/iter: Burgers {pinn['burgers_ms']:.4f}, oscillator "
+        f"{pinn['oscillator_ms']:.4f}"
         + f"; whole script {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

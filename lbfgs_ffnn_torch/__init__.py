@@ -9,7 +9,8 @@ objectives, the Armijo and Wolfe line searches, the curvature ring with f32
 or bf16 pairs, the two-loop recursion as plain torch and as three
 hand-written Hopper kernels with their size dispatch, the L-BFGS solver with
 both searches, gradient descent, S-LBFGS with its batch problem and its
-device-side sampler, the recorder, the launcher, the MNIST runner, the
+device-side sampler, the Burgers and oscillator PINNs with their runners
+and the FD oracle, the recorder, the launcher, the MNIST runner, the
 harness and the large-n two-loop diagnostic).
 """
 

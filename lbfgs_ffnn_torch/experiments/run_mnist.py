@@ -11,8 +11,8 @@ Style "cpu" (reference main-cpu.cpp: 5,000 samples):
 Runs on the card unless ``--device cpu``; the rows whose solver is not
 ported yet (SGD) are named on one line and not run. Each run writes
 ``<name>_history.csv`` into ``--out-dir``; ``--timed-chunks K`` runs the
-Armijo L-BFGS rows in K-iteration chunks and the S-LBFGS row in K-epoch
-chunks, with a measured ``TimeMs`` column.
+L-BFGS rows (Armijo and Wolfe) in K-iteration chunks and the S-LBFGS row in
+K-epoch chunks, with a measured ``TimeMs`` column.
 
 Usage:
   python -m lbfgs_ffnn_torch.experiments.run_mnist --dataset fashion --deep --data-root DIR
@@ -52,9 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", default=".", help="where the history CSVs go")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     p.add_argument("--timed-chunks", type=int, default=0,
-                   help="K > 0: run Armijo L-BFGS in K-iteration chunks (lbfgs_chunked) and "
+                   help="K > 0: run L-BFGS in K-iteration chunks (lbfgs_chunked) and "
                         "S-LBFGS in K-epoch chunks (slbfgs_chunked) with a measured TimeMs "
-                        "column (GD and Wolfe L-BFGS rows keep the whole-solve time)")
+                        "column (GD rows keep the whole-solve time)")
     return p
 
 
@@ -130,8 +130,7 @@ def main(argv=None) -> list[tuple[str, UnifiedConfig, TrainReport]]:
 
     done = []
     for solver, cfg in runs:
-        chunked = solver == "slbfgs" or (solver == "lbfgs" and args.style == "cuda")
-        if chunked and args.timed_chunks > 0:
+        if solver in ("slbfgs", "lbfgs") and args.timed_chunks > 0:
             cfg.timed_chunks = args.timed_chunks
         print(f"Running {cfg.name} ({solver}, seed={cfg.seed})...")
         report = launcher.train(solver, cfg)

@@ -12,10 +12,10 @@ and never moves to the CPU on its own.
 
 Timing: a short warm-up (``WARMUP_ITERS`` iterations or epochs) first pays
 the one-time costs of a process (the nvcc builds, cuBLAS set-up) and, for
-Armijo L-BFGS and S-LBFGS on the card, captures the timed solve's
-iteration or epoch as a CUDA graph; then the timed solve runs, its wall
-time from CUDA events around it on the card. With ``timed_chunks = K > 0``
-(Armijo L-BFGS, S-LBFGS), the solve is ``lbfgs_chunked`` or
+L-BFGS (Armijo and Wolfe) and S-LBFGS on the card, captures the timed
+solve's iteration or epoch as a CUDA graph; then the timed solve runs, its
+wall time from CUDA events around it on the card. With ``timed_chunks = K >
+0`` (L-BFGS, S-LBFGS), the solve is ``lbfgs_chunked`` or
 ``slbfgs_chunked`` in K-iteration (K-epoch) chunks and the CSV's ``TimeMs``
 column is its measured cumulative time per chunk, as in the JAX package;
 without it, the whole solve's time is spread over the iterations.
@@ -24,8 +24,7 @@ Ported: ``"gd"``, ``"lbfgs"`` (Armijo and Wolfe) and ``"slbfgs"`` (its
 options mapped as the JAX launcher's ``_slbfgs_opts``: lam 1e-4 when 0,
 ``m_inner = N // batch_size``, ``b_H = batch_size // 2`` unless set). Not
 ported yet, and raising ``NotImplementedError`` with their ROADMAP item
-when asked for: ``"sgd"``, ``timed_chunks > 0`` for GD and for Wolfe
-L-BFGS, ``compute_dtype``, ``prefix_dtype``, the ``*_input_dtype`` copies
+when asked for: ``"sgd"``, ``timed_chunks > 0`` for GD, ``compute_dtype``, ``prefix_dtype``, the ``*_input_dtype`` copies
 and ``ls_alpha_init="warm"``. The config fields only those read (decay,
 ``record_accuracy``, ...) return with them.
 """
@@ -45,7 +44,7 @@ from lbfgs_ffnn_torch.objectives.mlp import (
 )
 from lbfgs_ffnn_torch.recorder import History, history_from_result, write_history_csv
 from lbfgs_ffnn_torch.solvers.gd import GDOptions, gradient_descent
-from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, _solve_resident, lbfgs, lbfgs_chunked
+from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, lbfgs, lbfgs_chunked, lbfgs_warm_up
 from lbfgs_ffnn_torch.solvers.slbfgs import _solve as _slbfgs_solve
 from lbfgs_ffnn_torch.solvers.slbfgs import SLBFGSOptions, slbfgs, slbfgs_chunked
 from lbfgs_ffnn_torch.types import SolveResult
@@ -94,7 +93,7 @@ class UnifiedConfig:
     write_csv: bool = True
     line_search: str = ""        # L-BFGS override: "" = backend style
     pair_dtype: Optional[str] = None  # "bfloat16": the curvature ring in bf16
-    timed_chunks: int = 0  # K > 0: measured K-iteration chunks (Armijo L-BFGS, S-LBFGS)
+    timed_chunks: int = 0  # K > 0: measured K-iteration chunks (L-BFGS, S-LBFGS)
     # Not ported yet: anything but these values raises.
     compute_dtype: Optional[str] = None
     prefix_dtype: Optional[str] = None
@@ -242,19 +241,17 @@ class Launcher:
 
     def _warm_up(self, solver: str, c: UnifiedConfig) -> SolveResult:
         """``WARMUP_ITERS`` iterations (epochs) before the timed solve; for
-        Armijo L-BFGS and S-LBFGS on the card, of the timed solve's own
-        captured iteration or epoch (captured here, so the timed solve
-        replays it from the cache)."""
+        L-BFGS and S-LBFGS on the card, of the timed solve's own captured
+        iteration or epoch (captured here, so the timed solve replays it
+        from the cache)."""
         n = min(c.max_iters, WARMUP_ITERS)
         if self.device.type == "cuda" and solver == "slbfgs":
             return _slbfgs_solve(self._batch_problem(c), self.weights, self._x, self._y,
                                  self._slbfgs_opts(c), chunk=max(n, 1), capture=True,
                                  epochs=n)[0]
-        if (self.device.type == "cuda" and solver == "lbfgs"
-                and self._lbfgs_opts(c).line_search == "armijo"):
-            return _solve_resident(self._problem, self.weights, (self._x, self._y),
-                                   self._lbfgs_opts(c), chunk=max(n, 1), capture=True,
-                                   pipeline=False, iters=n)[0]
+        if solver == "lbfgs":
+            return lbfgs_warm_up(self._problem, self.weights, (self._x, self._y),
+                                 self._lbfgs_opts(c), iters=n)
         return self._solve(solver, c, n)
 
     def _timed(self, run) -> tuple[SolveResult, float]:

@@ -184,6 +184,18 @@ def mlp_apply(spec: MLPSpec, w: torch.Tensor, x: torch.Tensor,
     return h
 
 
+def mlp_apply_single(spec: MLPSpec, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Forward pass for one sample ``x (in_dim,) -> (out_dim,)``, written as
+    vector-matrix products so that ``torch.func.vmap`` over samples batches
+    them into ``(B, in) @ (in, out)`` GEMMs: the per-point form the PINN
+    residuals vmap over."""
+    h = x
+    for li, (w_off, b_off, d_in, d_out) in enumerate(spec.layer_slices()):
+        W, b = _layer(w, w_off, b_off, d_in, d_out)
+        h = _ACTIVATIONS[spec.activations[li]](h @ W + b)
+    return h
+
+
 def mlp_loss(spec: MLPSpec, w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
              lam: float = 0.0, compute_dtype=None) -> torch.Tensor:
     """Mean 0.5*MSE over the batch, optionally L2-regularized."""

@@ -8,10 +8,13 @@ the same trial sequence. The JAX versions are ``lax.while_loop``s that never
 leave the device; here each loop runs on the host and exits early on the
 accept test, which costs exactly one host sync per trial. Every other
 quantity (alpha, the bracket, the interpolation, the accept flag) stays a
-device tensor. :func:`armijo_quad_line_search_device` is the Armijo search
-with no host sync at all: a fixed budget of trial slots, each guarded by a
-device flag (:mod:`lbfgs_ffnn_torch.ops.control`), for the captured L-BFGS
-iteration. The batched Armijo search is not ported.
+device tensor. The device forms, for the captured L-BFGS iteration
+(:mod:`lbfgs_ffnn_torch.ops.control`), have no host sync at all under
+capture: :func:`armijo_quad_line_search_device` is a fixed budget of trial
+slots, each guarded by a device flag; :func:`wolfe_line_search_device` is
+one WHILE node around one trial (its budget is 100 on the PINN path, where
+nested slots would capture 100 copies of the trial). The batched Armijo
+search is not ported.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from lbfgs_ffnn_torch.ops.control import assign, guard
+from lbfgs_ffnn_torch.ops.control import assign, guard, loop
 
 
 class LineSearchResult(NamedTuple):
@@ -248,3 +251,85 @@ def armijo_quad_line_search_device(
             f_new, g_new = value_and_grad(x + alpha_eval * p, aux)
     return LineSearchResult(alpha=alpha_eval, ok=ok, evaluated=True, f_new=f_new,
                             g_new=g_new, n_trials=i, carry=carry)
+
+
+def wolfe_line_search_device(
+    value_and_grad: Callable[..., tuple[torch.Tensor, torch.Tensor]],
+    x: torch.Tensor,
+    p: torch.Tensor,
+    f0: torch.Tensor,
+    dg0: torch.Tensor,
+    aux: Any = (),
+    *,
+    c1: float = 1e-4,
+    c2: float = 0.9,
+    shrink: float = 0.5,
+    max_iters: int = 50,
+    alpha0: torch.Tensor | float = 1.0,
+    value: Callable[..., torch.Tensor] | None = None,
+    value_along: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    vag_along: Callable[[torch.Tensor], tuple] | None = None,
+    live: torch.Tensor | None = None,
+) -> LineSearchResult:
+    """:func:`wolfe_line_search` with every decision on the device: JAX's
+    ``lax.while_loop`` as :func:`~lbfgs_ffnn_torch.ops.control.loop`.
+
+    The carry (the trial counter ``i``, int32, ``alpha``, the bracket
+    ``lo``/``hi``, ``ok``, ``f_new``, and ``g_new`` for fused trials) lives
+    in device tensors; each pass of the loop is one trial while
+    ``(i < max_iters) & ~ok`` (and ``live``, when given: the enclosing
+    guard's flag, so that a run outside capture spends no trials where the
+    caller's writes are masked anyway). Lean trials take the full gradient
+    at the accepted point only, in ``guard(ok)``; ``g_new`` is zeros
+    otherwise. ``evaluated`` is the device bool ``ok`` and ``n_trials`` the
+    device ``i``; the trial sequence is the early-exit search's and JAX's.
+    Under capture nothing is read on the host; outside it the loop reads
+    its flag once per trial and once at the end.
+    """
+    fused = value is None
+    like = dict(dtype=x.dtype, device=x.device)
+    # torch.full, not torch.tensor: no host-to-device copy under capture
+    alpha = (alpha0.to(**like).reshape(()).clone() if isinstance(alpha0, torch.Tensor)
+             else torch.full((), alpha0, **like))
+    lo = torch.zeros((), **like)
+    hi = torch.full((), float("inf"), **like)
+    ok = torch.zeros((), dtype=torch.bool, device=x.device)
+    i = torch.zeros((), dtype=torch.int32, device=x.device)
+    f_new = f0.clone()
+    g_new = torch.zeros_like(x)
+
+    def more():
+        go = (i < max_iters) & ~ok
+        return go if live is None else go & live
+
+    def trial():
+        a = alpha
+        if fused:
+            f, g = value_and_grad(x + a * p, aux)
+            dg = torch.dot(g, p)
+        elif value_along is not None:
+            f, dg = torch.func.jvp(value_along, (a,), (torch.ones_like(a),))
+        else:
+            f, dg = torch.func.jvp(lambda u: value(u, aux), (x + a * p,), (p,))
+        armijo_fail = f > f0 + c1 * a * dg0
+        curv_fail = dg < c2 * dg0
+        accept = ~armijo_fail & ~curv_fail
+        alpha_a = shrink * (lo + a)  # Armijo failure: shrink into [lo, alpha]
+        alpha_c = torch.where(torch.isinf(hi), a * 2.0, shrink * (a + hi))
+        new = ((lo, torch.where(accept | armijo_fail, lo, a)),
+               (hi, torch.where(accept | ~armijo_fail, hi, a)),
+               (alpha, torch.where(accept, a, torch.where(armijo_fail, alpha_a, alpha_c))),
+               (ok, accept), (f_new, f), (i, i + 1))
+        if fused:
+            new += ((g_new, g),)
+        for dst, v in new:  # every new value is computed; now the carry moves
+            dst.copy_(v)
+
+    loop(more, trial)
+    if not fused:  # the full gradient at the accepted point only
+        with guard(ok):
+            g = vag_along(alpha)[1] if vag_along is not None else value_and_grad(x + alpha * p,
+                                                                                  aux)[1]
+            assign(ok, g_new, g)
+    return LineSearchResult(alpha=alpha, ok=ok, evaluated=ok, f_new=f_new, g_new=g_new,
+                            n_trials=i)

@@ -15,7 +15,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from lbfgs_ffnn_torch.ops.control import Graph, capture
+from lbfgs_ffnn_torch.ops.control import Graph, capture, host_reads
 from lbfgs_ffnn_torch.types import SolveResult
 
 
@@ -178,7 +178,9 @@ class Resident:
     a copy of the state (``captures`` counts them: a launch count on the
     card sees those runs too), then once in a flat check capture, where a
     host sync in a body raises cleanly, then into the graph that
-    :meth:`step` replays.
+    :meth:`step` replays. ``syncs`` counts the host reads: one per chunk
+    (:class:`Snapshot`), and, uncaptured, each read of a loop's flag
+    (:func:`~lbfgs_ffnn_torch.ops.control.host_reads`).
     """
 
     captures = 0
@@ -229,11 +231,14 @@ class Resident:
         self.syncs = 0
 
     def step(self) -> None:
-        for i in self.schedule:
-            if self.graphs is not None:
+        if self.graphs is not None:
+            for i in self.schedule:
                 self.graphs[i].replay()
-            else:
-                self.bodies[i](self.state, self.not_done)
+            return
+        reads = host_reads()
+        for i in self.schedule:
+            self.bodies[i](self.state, self.not_done)
+        self.syncs += host_reads() - reads  # an eager loop's flag reads
 
 
 class Snapshot:

@@ -13,20 +13,24 @@ Counterpart of :mod:`lbfgs_ffnn_tpu.solvers.lbfgs`, both branches:
 and the absolute or relative curvature gate in both.
 
 Two drivers, as in the JAX package:
-  * **The resident driver** (``"armijo"`` on CUDA tensors, and
+  * **The resident driver** (``lbfgs`` on CUDA tensors, both searches, and
     :func:`lbfgs_chunked`). The iteration is JAX's ``_make_body`` with its
     state (:class:`_State`) in device tensors and every decision on the
     device: :func:`_make_resident_body` guards the whole iteration with
-    ``not_done`` and each of the search's trial slots with its own flag
+    ``not_done``, each of the Armijo search's trial slots with its own flag,
+    the Wolfe branch's first step and search with ``k == 0`` and ``k > 0``,
+    and runs the Wolfe trials in a device loop
     (:mod:`lbfgs_ffnn_torch.ops.control`). On CUDA one iteration is
-    captured once into a CUDA graph (conditional nodes for the guards) and
-    replayed in chunks; the host reads the iteration counter and the stop
-    flag once per chunk (:func:`~lbfgs_ffnn_torch.solvers.common.drive_chunks`),
-    the PyTorch form of JAX's bounded ``while_loop`` chunks. On CPU tensors
-    :func:`lbfgs_chunked` runs the same body eagerly, its writes masked.
-  * **The early-exit loop** (``lbfgs`` on CPU tensors, and ``"wolfe"``
-    everywhere): a host loop with two kinds of host sync, the line search's
-    accept test once per trial and the stop test once per iteration.
+    captured once into a CUDA graph (IF nodes for the guards, a WHILE node
+    for the Wolfe trials) and replayed in chunks; the host reads the
+    iteration counter and the stop flag once per chunk
+    (:func:`~lbfgs_ffnn_torch.solvers.common.drive_chunks`), the PyTorch
+    form of JAX's bounded ``while_loop`` chunks. On CPU tensors
+    :func:`lbfgs_chunked` runs the same body eagerly, its writes masked (the
+    Wolfe loop reads its flag on the host once per trial).
+  * **The early-exit loop** (``lbfgs`` on CPU tensors): a host loop with two
+    kinds of host sync, the line search's accept test once per trial and
+    the stop test once per iteration.
 
 ``SolveResult.n_host_syncs`` counts the syncs of either driver. The solve
 runs in full float32 on CUDA: TF32 matmuls are switched off for its
@@ -36,10 +40,12 @@ and half the two-loop's history traffic); rho = 1/(y.s) comes from the
 solver-dtype pair before the push narrows it, and the recursion runs in the
 solver dtype.
 
+``curvature_pairs="hvp"`` takes y = H(x_new) s by one Hessian-vector
+product (``Problem.hvp``), on both branches, as in JAX.
+
 Not ported yet (each raises ``NotImplementedError``): the batched Armijo
-search, ``ls_alpha_init="warm"``, HVP curvature pairs, the sharded
-two-loops, pair dtypes other than bfloat16, ``prefix_dtype`` with
-``prefix_refresh``, ``mesh``, and the Wolfe branch on the resident driver.
+search, ``ls_alpha_init="warm"``, the sharded two-loops, pair dtypes other
+than bfloat16, ``prefix_dtype`` with ``prefix_refresh``, and ``mesh``.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from lbfgs_ffnn_torch.ops.control import assign, guard
 from lbfgs_ffnn_torch.ops.cuda_two_loop import two_loop_cuda
 from lbfgs_ffnn_torch.ops.linesearch import (
     armijo_quad_line_search, armijo_quad_line_search_device, wolfe_line_search,
+    wolfe_line_search_device,
 )
 from lbfgs_ffnn_torch.ops.two_loop import (
     RingState, empty_history_state, ring_push, ring_reset, two_loop, two_loop_compact,
@@ -93,7 +100,7 @@ class LBFGSOptions(NamedTuple):
 def _check_options(opts: LBFGSOptions) -> None:
     choices = {
         "line_search": (opts.line_search, ("wolfe", "armijo"), ("armijo_batched",)),
-        "curvature_pairs": (opts.curvature_pairs, ("grad_diff",), ("hvp",)),
+        "curvature_pairs": (opts.curvature_pairs, ("grad_diff", "hvp"), ()),
         "ls_alpha_init": (opts.ls_alpha_init, ("fixed",), ("warm",)),
         "two_loop_impl": (opts.two_loop_impl, ("plain", "cuda", "compact"), ("xla", "pallas")),
     }
@@ -211,10 +218,13 @@ def _make_va(problem: Problem, opts: LBFGSOptions):
     return make_va
 
 
-def _curvature_pair(opts: LBFGSOptions, g, g_new, alpha, p):
-    """(step, y, rho, accept): the pair and JAX's curvature gate."""
+def _curvature_pair(problem: Problem, opts: LBFGSOptions, g, g_new, x_new, alpha, p, aux):
+    """(step, y, rho, accept): the pair and JAX's curvature gate; y is the
+    gradient difference, or under ``curvature_pairs="hvp"`` the exact
+    ``H(x_new) step`` (one Hessian-vector product, counted as a gradient
+    evaluation by the caller)."""
     step = alpha * p
-    y = g_new - g
+    y = problem.hvp(x_new, step, aux) if opts.curvature_pairs == "hvp" else g_new - g
     ys = torch.dot(y, step)
     if opts.curvature_rel_eps > 0.0:
         gate = opts.curvature_rel_eps * torch.linalg.norm(y) * torch.linalg.norm(step)
@@ -301,7 +311,9 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
         p, hist, B, alpha, f_new, g_new, nf_add, ng_add, trials, carry = search(s, p, aux)
 
         x_new = s.x + alpha * p
-        step, y, rho, accept = _curvature_pair(opts, s.g, g_new, alpha, p)
+        step, y, rho, accept = _curvature_pair(problem, opts, s.g, g_new, x_new, alpha, p, aux)
+        if opts.curvature_pairs == "hvp":
+            ng_add += 1
         hist = ring_push(hist, step, y, rho, accept)
 
         gnorm_new = torch.linalg.norm(g_new)
@@ -369,70 +381,116 @@ def _not_done(s: _State, opts: LBFGSOptions) -> torch.Tensor:
 
 
 def _make_resident_body(problem: Problem, opts: LBFGSOptions):
-    """``body(s, not_done, aux)``: JAX's Armijo iteration on the device
-    state ``s``, in place, guarded by the device bool ``not_done`` (which it
-    updates). Nothing in it reads a value back to the host: captured into a
-    CUDA graph, the guards are IF nodes; run eagerly, every write is masked
-    by its flag."""
+    """``body(s, not_done, aux)``: JAX's iteration on the device state ``s``,
+    in place, guarded by the device bool ``not_done`` (which it updates).
+    Nothing in it reads a value back to the host under capture: the guards
+    are IF nodes and the Wolfe search's trial loop a WHILE node; run
+    eagerly, every write is masked by its flag (and the trial loop reads
+    its flag on the host once per trial)."""
     _check_options(opts)
-    if opts.line_search != "armijo":
-        raise NotImplementedError(
-            f"the resident driver runs line_search=\"armijo\", got {opts.line_search!r}; the "
-            "Wolfe branch on it is ROADMAP queue 1 item 1 (lbfgs() runs Wolfe in its "
-            "early-exit loop)")
     two_loop_fn = _direction_fn(opts)
     lean = _lean(problem, opts)
     use_prefix = _use_prefix(problem, opts)
     carry_mode = _carry_mode(problem, opts)
     make_va = _make_va(problem, opts)
 
-    def body(s: _State, not_done: torch.Tensor, aux) -> None:
-        with guard(not_done):
-            p = -two_loop_fn(s.g, s.hist)
-            dg0 = torch.dot(s.g, p)
-            # Steepest-descent fallback + history reset on a non-descent p
-            # (reference: src/cuda/lbfgs.cuh:97-104).
-            nondescent = dg0 >= 0
-            p = torch.where(nondescent, -s.g, p)
-            dg0 = torch.where(nondescent, -torch.dot(s.g, s.g), dg0)
-            hist = ring_reset(s.hist, nondescent)
-            one = torch.ones_like(s.gnorm)
-            alpha0 = torch.where(s.k == 0, torch.minimum(one, 1.0 / s.gnorm), one)
-            B, va, vag, vagc = make_va(s.x, s.prefix, p, aux)
-            ls = armijo_quad_line_search_device(
-                problem.value_and_grad, s.x, p, s.f, dg0, aux,
-                c1=opts.c1, shrink=opts.ls_shrink, max_iters=opts.ls_max_iters,
-                alpha0=alpha0,
+    def armijo(s: _State, not_done, p, aux):
+        dg0 = torch.dot(s.g, p)
+        # Steepest-descent fallback + history reset on a non-descent p
+        # (reference: src/cuda/lbfgs.cuh:97-104).
+        nondescent = dg0 >= 0
+        p = torch.where(nondescent, -s.g, p)
+        dg0 = torch.where(nondescent, -torch.dot(s.g, s.g), dg0)
+        hist = ring_reset(s.hist, nondescent)
+        one = torch.ones_like(s.gnorm)
+        alpha0 = torch.where(s.k == 0, torch.minimum(one, 1.0 / s.gnorm), one)
+        B, va, vag, vagc = make_va(s.x, s.prefix, p, aux)
+        ls = armijo_quad_line_search_device(
+            problem.value_and_grad, s.x, p, s.f, dg0, aux,
+            c1=opts.c1, shrink=opts.ls_shrink, max_iters=opts.ls_max_iters,
+            alpha0=alpha0,
+            value=problem.fun if lean else None,
+            value_along=va if lean else None,
+            vag_along=vag if lean else None,
+            vag_carry_along=vagc if lean else None,
+        )
+        # History reset on line-search failure (cuda/lbfgs.cuh:147).
+        hist = ring_reset(hist, ~ls.ok)
+        if lean:  # value-only trials + one value-and-gradient
+            nf_add, ng_add = ls.n_trials + 1, 1
+        else:     # each trial is a fused value-and-gradient
+            nf_add, ng_add = ls.n_trials, ls.n_trials
+        return _Step(p, hist, B, ls.alpha, ls.f_new, ls.g_new, nf_add, ng_add, 0, ls.carry)
+
+    def wolfe(s: _State, not_done, p, aux):
+        """JAX's ``lax.cond(s.k == 0, first, later)`` as two guards writing
+        one set of buffers; ``later``'s ``lax.cond(ls.evaluated, use_ls,
+        reeval)`` as a guard on ``~evaluated``. No non-descent fallback."""
+        B, va, vag, _ = make_va(s.x, s.prefix, p, aux)
+        alpha, f_new, g_new = s.gnorm.clone(), s.f.clone(), s.g.clone()
+        nf_add, ng_add = s.nf.clone(), s.ng.clone()
+        out = (alpha, f_new, g_new, nf_add, ng_add)
+        first = not_done & (s.k == 0)
+        with guard(first):
+            # First-iteration heuristic step, no search
+            # (reference: src/minimizer/lbfgs.hpp:61-65).
+            a = torch.minimum(torch.ones_like(s.gnorm), 1.0 / s.gnorm)
+            f, g = problem.value_and_grad(s.x + a * p, aux)
+            one = torch.ones_like(s.k)
+            for dst, new in zip(out, (a, f, g, one, one)):
+                assign(first, dst, new)
+        later = not_done & (s.k > 0)
+        with guard(later):
+            ls = wolfe_line_search_device(
+                problem.value_and_grad, s.x, p, s.f, torch.dot(s.g, p), aux,
+                c1=opts.c1, c2=opts.c2, shrink=opts.ls_shrink, max_iters=opts.ls_max_iters,
+                alpha0=1.0,
                 value=problem.fun if lean else None,
                 value_along=va if lean else None,
                 vag_along=vag if lean else None,
-                vag_carry_along=vagc if lean else None,
+                live=later,
             )
-            # History reset on line-search failure (cuda/lbfgs.cuh:147).
-            hist = ring_reset(hist, ~ls.ok)
-            alpha, f_new, g_new = ls.alpha, ls.f_new, ls.g_new
+            reeval = later & ~ls.evaluated
+            with guard(reeval):  # re-evaluate at the search's last alpha
+                f, g = problem.value_and_grad(s.x + ls.alpha * p, aux)
+                assign(reeval, ls.f_new, f)
+                assign(reeval, ls.g_new, g)
+            if lean:  # jvp trials + one value-and-gradient (accepted or re-evaluated)
+                nf, ng = ls.n_trials + 1, torch.ones_like(ls.n_trials)
+            else:
+                nf = ng = ls.n_trials + (~ls.evaluated).to(torch.int32)
+            for dst, new in zip(out, (ls.alpha, ls.f_new, ls.g_new, nf, ng)):
+                assign(later, dst, new)
+        return _Step(p, s.hist, B, alpha, f_new, g_new, nf_add, ng_add, 0)
+
+    search = armijo if opts.line_search == "armijo" else wolfe
+
+    def body(s: _State, not_done: torch.Tensor, aux) -> None:
+        with guard(not_done):
+            p = -two_loop_fn(s.g, s.hist)
+            p, hist, B, alpha, f_new, g_new, nf_add, ng_add, _, carry = search(
+                s, not_done, p, aux)
             x_new = s.x + alpha * p
-            step, y, rho, accept = _curvature_pair(opts, s.g, g_new, alpha, p)
+            step, y, rho, accept = _curvature_pair(problem, opts, s.g, g_new, x_new, alpha, p,
+                                                   aux)
+            if opts.curvature_pairs == "hvp":
+                ng_add = ng_add + 1
             hist = ring_push(hist, step, y, rho, accept & not_done)  # rows in place
             gnorm_new = torch.linalg.norm(g_new)
             record_at(not_done, s.loss_h, s.gnorm_h, s.k, f_new, gnorm_new)
             if carry_mode:
-                prefix_new = ls.carry
+                prefix_new = carry
             elif use_prefix:  # the prefix is linear in w: P += alpha * B
                 prefix_new = s.prefix + alpha * B
             else:
                 prefix_new = s.prefix
-            if lean:  # value-only trials + one value-and-gradient
-                nf_new, ng_new = s.nf + ls.n_trials + 1, s.ng + 1
-            else:     # each trial is a fused value-and-gradient
-                nf_new, ng_new = s.nf + ls.n_trials, s.ng + ls.n_trials
             k_new = s.k + 1
             not_done_new = (k_new < opts.max_iters) & (gnorm_new >= opts.tol)
             # every new value is computed; now the state moves
             for dst, new in ((s.x, x_new), (s.f, f_new), (s.g, g_new), (s.gnorm, gnorm_new),
                              (s.hist.head, hist.head), (s.hist.count, hist.count),
-                             (s.nf, nf_new), (s.ng, ng_new), (s.alpha_prev, alpha),
-                             (s.k, k_new)):
+                             (s.nf, s.nf + nf_add), (s.ng, s.ng + ng_add),
+                             (s.alpha_prev, alpha), (s.k, k_new)):
                 assign(not_done, dst, new)
             if use_prefix:
                 for dst, new in zip(tensors(s.prefix), tensors(prefix_new), strict=True):
@@ -521,13 +579,13 @@ def lbfgs(
     mesh=None,
 ) -> SolveResult:
     """Run L-BFGS from ``x0`` on its device; ``aux`` lives there too. CUDA
-    tensors under ``line_search="armijo"`` run the resident driver (the
-    iteration replayed as a CUDA graph, :data:`RESIDENT_CHUNK` iterations
-    per host read); everything else runs the early-exit loop."""
+    tensors run the resident driver, under either search (the iteration
+    replayed as a CUDA graph, :data:`RESIDENT_CHUNK` iterations per host
+    read); CPU tensors run the early-exit loop."""
     opts = opts or LBFGSOptions()
     if mesh is not None:
         raise NotImplementedError("lbfgs(mesh=...) is not ported yet (ROADMAP queue 1 item 11)")
-    if x0.is_cuda and opts.line_search == "armijo":
+    if x0.is_cuda:
         return _solve_resident(problem, x0, aux, opts, chunk=RESIDENT_CHUNK, capture=True)[0]
     return _lbfgs_loop(problem, x0, aux, opts)
 
@@ -535,8 +593,8 @@ def lbfgs(
 def _lbfgs_loop(problem: Problem, x0: torch.Tensor, aux: Any = (),
                 opts: LBFGSOptions | None = None) -> SolveResult:
     """The early-exit loop on any device: what ``lbfgs`` runs on CPU
-    tensors and under Wolfe, and the reference the resident driver is held
-    against on the card."""
+    tensors, and the reference the resident driver is held against on the
+    card."""
     opts = opts or LBFGSOptions()
     body = _make_body(problem, opts)
     with full_f32(), torch.no_grad():
@@ -551,6 +609,20 @@ def _lbfgs_loop(problem: Problem, x0: torch.Tensor, aux: Any = (),
                     n_fevals=s.nf, n_gevals=s.ng, n_host_syncs=syncs)
 
 
+def lbfgs_warm_up(problem: Problem, x0: torch.Tensor, aux: Any = (),
+                  opts: LBFGSOptions | None = None, iters: int = 2) -> SolveResult:
+    """``iters`` iterations, from ``x0``, of the solve ``lbfgs`` runs with
+    these arguments: on CUDA tensors its iteration captured here and cached
+    (a later ``lbfgs`` with the same problem, options, shapes and ``aux``
+    tensors replays it, from any start), read by the host once at the end;
+    on CPU tensors the early-exit loop. The warm-up before a timed solve."""
+    opts = opts or LBFGSOptions()
+    if x0.is_cuda:
+        return _solve_resident(problem, x0, aux, opts, chunk=max(iters, 1), capture=True,
+                               pipeline=False, iters=iters)[0]
+    return _lbfgs_loop(problem, x0, aux, opts._replace(max_iters=iters))
+
+
 def lbfgs_chunked(
     problem: Problem,
     x0: Optional[torch.Tensor],
@@ -561,9 +633,9 @@ def lbfgs_chunked(
     resume_state: Optional[_State] = None,
     mesh=None,
 ):
-    """Run L-BFGS (``line_search="armijo"``) in ``chunk``-iteration pieces
-    on the resident driver: on CUDA the captured iteration replayed, on the
-    CPU the same body run eagerly.
+    """Run L-BFGS (either search; ``line_search="armijo"`` when ``opts`` is
+    None) in ``chunk``-iteration pieces on the resident driver: on CUDA the
+    captured iteration replayed, on the CPU the same body run eagerly.
 
     Returns ``(result, time_ms)``: ``time_ms[i]`` is the measured cumulative
     wall time (host clock, host numpy) after iteration ``i``, at chunk

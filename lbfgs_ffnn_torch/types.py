@@ -7,10 +7,11 @@ package uses ``jax.value_and_grad``. ``aux`` is a tuple of extra operands
 (e.g. the training set ``(x, y)``).
 
 Ported so far: what the L-BFGS paths use, ``Problem.hess`` in JAX's field
-order (the analytic objectives supply their dense Hessians), and the
-stochastic solvers' :class:`BatchProblem` with :func:`make_batch_problem`.
-``Problem.hvp`` and the default autodiff dense Hessian are not ported yet:
-without a ``hess`` argument ``Problem.hess`` is None.
+order (the analytic objectives supply their dense Hessians),
+``Problem.hvp`` (forward over reverse), and the stochastic solvers'
+:class:`BatchProblem` with :func:`make_batch_problem`. The default autodiff
+dense Hessian is not ported yet: without a ``hess`` argument
+``Problem.hess`` is None.
 """
 
 from __future__ import annotations
@@ -58,6 +59,11 @@ class Problem(NamedTuple):
     line_fun: Optional[Callable[..., Callable[[torch.Tensor], torch.Tensor]]] = None
     line_prefix: Optional[LinePrefix] = None
     prepare: Optional[Callable[[Any], Any]] = None
+
+    def hvp(self, w: torch.Tensor, v: torch.Tensor, aux: Any = ()) -> torch.Tensor:
+        """Exact Hessian-vector product, forward over reverse
+        (``torch.func.jvp`` of ``grad``)."""
+        return torch.func.jvp(lambda u: self.grad(u, aux), (w,), (v,))[1]
 
 
 class BatchProblem(NamedTuple):

@@ -99,6 +99,9 @@ def test_port_imports_without_jax():
         "import lbfgs_ffnn_torch.experiments.resident_phase_study\n"
         "import lbfgs_ffnn_torch.ops.control, lbfgs_ffnn_torch.experiments.bench\n"
         "import lbfgs_ffnn_torch.solvers.slbfgs, lbfgs_ffnn_torch.ops.sampling\n"
+        "import lbfgs_ffnn_torch.objectives.pinn, lbfgs_ffnn_torch.experiments.run_burgers\n"
+        "import lbfgs_ffnn_torch.experiments.run_oscillator\n"
+        "import lbfgs_ffnn_torch.experiments.burgers_validate\n"
         "assert not any(k.startswith(('jax', 'lbfgs_ffnn_tpu')) and sys.modules[k] is not None\n"
         "               for k in sys.modules)\n"
     )

@@ -110,7 +110,7 @@ def test_launcher_runs_on_cuda_unless_told_otherwise():
     ("gd", {"timed_chunks": 10}), ("lbfgs", {"compute_dtype": "bfloat16"}),
     ("lbfgs", {"prefix_dtype": "bfloat16"}), ("lbfgs", {"grad_input_dtype": "bfloat16"}),
     ("lbfgs", {"line_input_dtype": "uint8"}), ("gd", {"fun_input_dtype": "uint8"}),
-    ("lbfgs", {"ls_alpha_init": "warm"}), ("lbfgs", {"line_search": "wolfe", "timed_chunks": 5}),
+    ("lbfgs", {"ls_alpha_init": "warm"}), ("lbfgs", {"pair_dtype": "float16", "timed_chunks": 5}),
     ("lbfgs", {"line_search": "armijo_batched"}), ("lbfgs", {"pair_dtype": "float16"}),
 ])
 def test_unported_options_raise(solver, kw, tmp_path):
@@ -248,7 +248,7 @@ def test_runner_filters_and_styles(fashion_root, capsys):
     sl = done[1][1]
     assert (sl.batch_size, sl.m_param, sl.L_param, sl.b_H_param, sl.learning_rate,
             sl.timed_chunks) == (256, 10, 10, 128, 0.02, 1)
-    assert done[1][2].result.n_iters == 2 and done[2][1].timed_chunks == 0
+    assert done[1][2].result.n_iters == 2 and done[2][1].timed_chunks == 1  # Wolfe L-BFGS too
     with pytest.raises(SystemExit):
         run_mnist.main(base + ["--only", "nothing-matches"])
     with pytest.raises(SystemExit):  # --data-root is required

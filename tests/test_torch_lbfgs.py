@@ -165,7 +165,7 @@ def test_stops_on_tol_and_pads_history():
 
 @pytest.mark.parametrize("kw", [
     {"line_search": "wolfe", "ls_alpha_init": "warm"}, {"line_search": "armijo_batched"},
-    {"ls_alpha_init": "warm"}, {"curvature_pairs": "hvp"}, {"two_loop_impl": "pallas"},
+    {"ls_alpha_init": "warm"}, {"two_loop_impl": "xla"}, {"two_loop_impl": "pallas"},
     {"pair_dtype": "float16"}, {"prefix_dtype": "bfloat16"}, {"prefix_refresh": 16},
 ])
 def test_unported_options_raise(kw):
