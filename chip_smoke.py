@@ -111,16 +111,35 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 m=16, Wolfe with 50 fused trials, 2000 iterations) through
                 K1: max |u - sin| <= 0.05, K1 launches counted; the phase's
                 time
- 14. result   - one JSON line with the three kernels' numbers (K1's launches
-                summed over its three paths, K2's over its two, each also by
-                path, with the PINN ring's numbers; K2's with its group
+ 14. first_order - the first-order solvers and the runner's last rows: (a)
+                the runner (run_mnist --iters 100 --timed-chunks 10
+                --record-accuracy) at its four default rows in the cuda
+                style (GD, sequential SGD, L-BFGS m=10 through K1 and m=100
+                through K2; 784-128-10, N=60,000) and in the cpu style (GD,
+                random SGD, S-LBFGS through K1, Wolfe L-BFGS m=20 through
+                K2; N=5,000) from seeded label files: no row "not run",
+                every loss finite and falling, the CSV columns (TrainAcc and
+                TestAcc on the stochastic rows), host syncs <= ceil(steps /
+                10) + 2, the kernels' launches = directions; (b) GD momentum
+                and Wolfe (50 iterations, N=60,000), captured = eager body
+                bitwise, ms/iter captured and on the host loop; (c) SGD
+                sequential (234 batches of 256 and a 96-row tail) and
+                random, captured = eager body bitwise over 3 epochs,
+                ms/epoch over 10, capture time, host syncs; (d)
+                sgd_streaming from the port's BatchStreamer (pinned), 2
+                epochs, its ms/epoch beside the resident SGD's; the phase's
+                time
+ 15. result   - one JSON line with the three kernels' numbers (K1's launches
+                summed over its four paths, K2's over its three, each also
+                by path, with the PINN ring's numbers; K2's with its group
                 size, K3's with its prefetch distance and its time at each
                 distance), then the last line {"ok": true, "device": {...}}
 
-The L-BFGS solves of phases 7-10 and 13 (Armijo and Wolfe) and the S-LBFGS
-solves of phase 12 run on the resident driver; their host syncs are held to
-ceil(iters / chunk) + 2, and every launch count is read from the kernels'
-counters on the device.
+The L-BFGS solves of phases 7-10, 13 and 14 (Armijo and Wolfe), the
+S-LBFGS solves of phases 12 and 14 and the GD and SGD solves of phase 14
+run on the resident driver; their host syncs are held to ceil(iters /
+chunk) + 2, and every launch count is read from the kernels' counters on
+the device.
 
 --profile adds torch.profiler readings: each kernel's device time per call
 in the dispatch table, and the device time by kernel of 10 MNIST iterations,
@@ -129,8 +148,10 @@ of the whole deep L-BFGS m=100 f32 solve, of the whole large Rosenbrock
 Armijo solve through K3 and of the Burgers (200 iterations captured, 10
 early-exit) and oscillator (200 iterations) solves, each beside the wall
 time of the same solve unprofiled, with the two-loop kernel's device time
-per iteration; and the 100-iteration captured Burgers solve in both of the
-residual's formulations ("vmap", the default, and "batched").
+per iteration; the 100-iteration captured Burgers solve in both of the
+residual's formulations ("vmap", the default, and "batched"); and the
+captured GD momentum solve and the SGD solves of phase 14 (the device idle
+share per iteration or epoch).
 
 Imports nothing of JAX. Full f32 throughout: TF32 is switched off.
 """
@@ -155,6 +176,7 @@ DEEP_DIMS = [784, 256, 128, 64, 10]
 DEEP_ACTS = ["relu", "relu", "relu", "linear"]
 M = 10
 M_DEEP = 100
+M_RUNNER_K2 = (20, 100)  # the runner's L-BFGS rows that K2 takes at MNIST width
 M_LARGE = 50
 N_LARGE = 2_000_000
 N_LARGE_RINGS = (2_000_000, 4_000_000)
@@ -166,6 +188,10 @@ LARGE_ITERS = 120
 SEED = 123
 SL_N, SL_B, SL_BH, SL_L = 5_000, 256, 128, 10  # the port bench's S-LBFGS row
 SL_EPOCHS = 30
+FO_ITERS = 100       # the runner's default rows: iterations (epochs) each
+FO_GD_ITERS = 50     # GD held captured = eager body bitwise, and timed
+FO_SGD_CHECK = 3     # SGD epochs held captured = eager body bitwise
+FO_SGD_EPOCHS = 10   # SGD epochs timed
 LAUNCHER_EPOCHS = 3  # the Launcher's S-LBFGS on all N_TRAIN samples
 PINN_CHECK_ITERS = 10  # Burgers iterations held captured = eager body bitwise
 BURGERS_ITERS = 5000   # the Burgers runner's default depth
@@ -410,8 +436,10 @@ def _groups(n_pad, m, pair_bytes):
 
 
 def stream_phase(torch, dev):
-    """K2 at every group size the deep rings take. Returns the largest
-    max|kernel - plain| at the group size the dispatch runs, f32 ring."""
+    """K2 at every group size the deep rings take, then at the group size
+    the dispatch gives the runner's MNIST rings (L-BFGS m = 100 in the cuda
+    style, Wolfe m = 20 in the cpu style). Returns the largest
+    max|kernel - plain| at the group size the dispatch runs, f32 rings."""
     import functools
 
     import lbfgs_ffnn_torch.ops.two_loop  # noqa: F401
@@ -438,6 +466,24 @@ def stream_phase(torch, dev):
         errs = _agreement(torch, ttl, kernels, "stream", v, rings, M_DEEP, n_deep, name)
         worst[name] = errs[f" K2 k={picked}"]
         del rings
+    n_mnist = _n_params(DIMS)
+    v = torch.tensor(np.random.default_rng(9).normal(size=n_mnist), dtype=torch.float32,
+                     device=dev)
+    for m in M_RUNNER_K2:
+        for pd, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            rings = _rings(torch, ttl, m, n_mnist, (0, m // 3, m, m + 3), pd, dev, seed=9)
+            n_pad = rings[0].S.shape[1]
+            impl = kernel_dispatch(n_pad, m, torch.float32, pd)[0]
+            check(impl == STREAMING, f"m={m} n={n_mnist} {name}: dispatch picks {impl}, not K2")
+            k = group_size(n_pad, m, pd.itemsize)
+            say("stream", f"runner ring m={m} n={n_mnist} {name}: group_size picks {k}")
+            label = f" K2 k={k}"
+            errs = _agreement(torch, ttl, {label: (
+                functools.partial(launch, STREAMING, group=k),
+                (f"grouped algebra at k={k}", functools.partial(ttl.two_loop_grouped, k=k)))},
+                "stream", v, rings, m, n_mnist, name)
+            worst[name] = max(worst[name], errs[label])
+            del rings
     return worst["f32"]
 
 
@@ -1522,6 +1568,312 @@ def pinn_phase(torch, dev, profile: bool, burgers_iters=BURGERS_ITERS):
             "burgers_ms": run["ms_iter"], "oscillator_ms": osc["ms_iter"]}
 
 
+def _runner_rows(torch, style, root, out):
+    """run_mnist's default rows in ``style`` (FO_ITERS iterations or epochs,
+    chunks of 10, the accuracy columns) from the label files in ``root``:
+    their stdout, the rows, the kernels' launches (counted from 0 just
+    before the runner and read just after it) and the captures it made."""
+    import contextlib
+    import io
+
+    from lbfgs_ffnn_torch.experiments import run_mnist
+    from lbfgs_ffnn_torch.ops.cuda_two_loop import two_loop_cuda
+    from lbfgs_ffnn_torch.solvers.common import Resident
+
+    argv = ["--style", style, "--iters", str(FO_ITERS), "--timed-chunks", "10",
+            "--record-accuracy", "--data-root", str(root), "--out-dir", str(out)]
+    _reset(two_loop_cuda.LAUNCHES)
+    c0 = Resident.captures
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        done = run_mnist.main(argv)
+    return (text.getvalue(), done, dict(two_loop_cuda.LAUNCHES), Resident.captures - c0,
+            time.perf_counter() - t0, argv)
+
+
+def first_order_phase(torch, dev, profile: bool, mnist_root):
+    """The first-order solvers on the resident driver and the runner's last
+    default rows: (a) run_mnist's four default rows in the cuda style at
+    full width (784-128-10, N = 60,000) and in the cpu style (N = 5,000),
+    K1's and K2's launches by their L-BFGS and S-LBFGS rows counted; (b) GD
+    momentum and Wolfe, captured, against the eager body and the host loop;
+    (c) SGD sequential (with its tail) and random, captured, against the
+    eager body; (d) sgd_streaming from pinned buffers."""
+    import collections
+    import importlib
+
+    from lbfgs_ffnn_torch.data.idx import write_idx_u8
+    from lbfgs_ffnn_torch.objectives.mlp import (
+        mlp_batch_problem, mlp_init, mlp_problem, mlp_spec, take_batch,
+    )
+    from lbfgs_ffnn_torch.ops.cuda_two_loop import kernel_dispatch
+    from lbfgs_ffnn_torch.runtime import BatchStreamer
+    from lbfgs_ffnn_torch.solvers.common import Resident, clear_graph_cache
+
+    gd = importlib.import_module("lbfgs_ffnn_torch.solvers.gd")
+    sgd = importlib.import_module("lbfgs_ffnn_torch.solvers.sgd")
+    sl = importlib.import_module("lbfgs_ffnn_torch.solvers.slbfgs")
+    t_phase = time.perf_counter()
+    spec = mlp_spec(DIMS, ACTS)
+    n_pad = -(-spec.n_params // 128) * 128
+
+    # (a) the runner's default rows, both styles
+    runner_launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "mnist"
+        root.mkdir()
+        rng = np.random.default_rng(SEED)
+        write_idx_u8(root / "train-labels.idx1-ubyte", rng.integers(0, 10, N_TRAIN, dtype=np.uint8))
+        write_idx_u8(root / "t10k-labels.idx1-ubyte", rng.integers(0, 10, 10_000, dtype=np.uint8))
+        for style, solvers in (("cuda", ["gd", "sgd", "lbfgs", "lbfgs"]),
+                               ("cpu", ["gd", "sgd", "slbfgs", "lbfgs"])):
+            out = Path(tmp) / f"out_{style}"
+            text, done, launches, captures, wall, argv = _runner_rows(torch, style, root, out)
+            say("first_order", f"python -m lbfgs_ffnn_torch.experiments.run_mnist {' '.join(argv)}"
+                f" (seeded label files in a temporary --data-root, images synthesized): "
+                f"{wall:.1f} s")
+            for line in text.splitlines():
+                if line.startswith("[") or "not run" in line:
+                    say("first_order", f"  {line}")
+            check("not run" not in text, f"{style} style: a row was not run")
+            check([s for s, _, _ in done] == solvers, f"{style} style ran {done}")
+            want = collections.Counter()
+            for solver, cfg, rep in done:
+                res = rep.result
+                lh = res.loss_history[:res.n_iters].cpu().numpy()
+                check(res.n_iters > 0 and bool(np.isfinite(lh).all()) and lh[-1] < lh[0],
+                      f"{cfg.name}: non-finite loss or no fall ({lh[:1]} -> {lh[-1:]})")
+                header = Path(rep.csv_path).read_text().splitlines()[0]
+                cols = "Iteration,Loss,GradNorm,TimeMs" + (
+                    ",TrainAcc,TestAcc" if solver in ("sgd", "slbfgs") else "")
+                check(header == cols, f"{cfg.name}: CSV header {header!r}, not {cols!r}")
+                bound = -(-res.n_iters // 10) + 2
+                check(res.n_host_syncs <= bound,
+                      f"{cfg.name}: {res.n_host_syncs} host syncs > {bound}")
+                # each row captured once; the capture runs its bodies once eagerly
+                if solver == "lbfgs":
+                    want[kernel_dispatch(n_pad, cfg.m_param, torch.float32)[0]] += res.n_iters + 1
+                elif solver == "slbfgs":
+                    m_inner = max(rep.train_eval["n"] // cfg.batch_size, 1)
+                    impl = kernel_dispatch(n_pad, cfg.m_param, torch.float32)[0]
+                    want[impl] += res.n_iters * m_inner + _capture_steps(sl, m_inner, cfg.L_param)
+            check(captures == len(solvers), f"{style} style: {captures} captures, not one a row")
+            got = {k: v for k, v in launches.items() if v}
+            check(got == dict(want), f"{style} style: launches {got} != {dict(want)} (each "
+                  "L-BFGS row's iterations + 1 capture, S-LBFGS's epochs x steps + its capture)")
+            runner_launches.update(got)
+            say("first_order", f"{style} style: rows {[c.name for _, c, _ in done]} all run; CSV "
+                f"columns checked (TrainAcc, TestAcc on SGD and S-LBFGS); host syncs <= "
+                f"ceil(steps / 10) + 2 per row; kernel launches (device count) {got} = "
+                f"{dict(want)}")
+    clear_graph_cache()
+
+    # (b) GD momentum and Wolfe: captured against the eager body and the host loop
+    (x, y), source = _data(torch, dev, mnist_root)
+    problem = mlp_problem(spec)
+    w0 = mlp_init(spec, torch.Generator().manual_seed(SEED), torch.float32, bias_init="zeros",
+                  device=dev)
+    gd_ms = {}
+    for name, kw in (("momentum", dict(momentum=0.9, step_size=0.02)), ("Wolfe", dict())):
+        opts = gd.GDOptions(max_iters=FO_GD_ITERS, tol=1e-12, **kw)
+        eager = gd._gd_resident_eager(problem, w0, (x, y), opts)
+        c0 = Resident.captures
+        gd.gradient_descent(problem, w0, (x, y), opts)  # captures
+        check(Resident.captures == c0 + 1, f"GD {name}: the first solve did not capture")
+        capture_s = Resident.last_capture_s
+        times = {"captured": [], "loop": []}
+        for run in ("captured", "loop", "loop", "captured"):
+            fn = gd.gradient_descent if run == "captured" else gd._gd_loop
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn(problem, w0, (x, y), opts)
+            end.record()
+            torch.cuda.synchronize()
+            times[run].append(start.elapsed_time(end) / res.n_iters)
+            if run == "captured":
+                cap = res
+            else:
+                loop = res
+        same = {k: torch.equal(getattr(cap, k), getattr(eager, k))
+                for k in ("x", "loss_history", "gnorm_history")}
+        check(all(same.values()) and (cap.n_fevals, cap.n_gevals) == (eager.n_fevals,
+                                                                        eager.n_gevals),
+              f"GD {name}: captured != eager body (bitwise {same})")
+        bound = -(-cap.n_iters // gd.RESIDENT_CHUNK) + 2
+        check(cap.n_host_syncs <= bound, f"GD {name}: {cap.n_host_syncs} host syncs > {bound}")
+        lh = cap.loss_history.cpu().numpy()
+        check(bool(np.isfinite(lh).all()) and lh[-1] < lh[0], f"GD {name}: loss did not fall")
+        check(np.allclose(lh[:5], loop.loss_history[:5].cpu().numpy(), rtol=1e-4, atol=0),
+              f"GD {name}: first 5 losses differ from the host loop's")
+        gd_ms[name] = min(times["captured"])
+        say("first_order", f"GD {name} ({FO_GD_ITERS} iterations, data: {source}): captured = "
+            f"eager body bitwise {same}, n_fevals {cap.n_fevals}; host syncs "
+            f"{cap.n_host_syncs} <= {bound} (host loop {loop.n_host_syncs}); "
+            f"{gd_ms[name]:.4f} ms/iter captured, {min(times['loop']):.4f} host loop (CUDA "
+            f"events, min of 2 each, in turns); capture {capture_s:.3f} s; loss {lh[0]:.6g} -> "
+            f"{lh[-1]:.6g}")
+        if profile and name == "momentum":
+            _profile(torch, lambda: gd.gradient_descent(problem, w0, (x, y), opts))
+    clear_graph_cache()
+
+    # (c) SGD sequential (234 batches of 256 and the 96-row tail) and random
+    bp = mlp_batch_problem(spec)
+    sgd_ms = {}
+    for sampling in ("sequential", "random"):
+        opts = sgd.SGDOptions(epochs=FO_SGD_EPOCHS, batch_size=256, step_size=0.01,
+                              momentum=0.9 if sampling == "sequential" else 0.0,
+                              sampling=sampling, lr_decay=0.8, lr_decay_step=2)
+        # the timed solve's first FO_SGD_CHECK epochs, its graphs captured
+        # here (the timed solves replay them), against the same epochs eager
+        eager = sgd._solve(bp, w0, x, y, opts, chunk=FO_SGD_CHECK, capture=False,
+                           epochs=FO_SGD_CHECK)[0]
+        c0 = Resident.captures
+        cap = sgd.sgd_warm_up(bp, w0, x, y, opts, epochs=FO_SGD_CHECK)
+        check(Resident.captures == c0 + 1, f"SGD {sampling}: the warm-up did not capture")
+        capture_s = Resident.last_capture_s
+        same = {k: torch.equal(getattr(cap, k)[:FO_SGD_CHECK], getattr(eager, k)[:FO_SGD_CHECK])
+                for k in ("loss_history", "gnorm_history")}
+        same["x"] = torch.equal(cap.x, eager.x)
+        check(all(same.values()) and cap.n_iters == eager.n_iters == FO_SGD_CHECK,
+              f"SGD {sampling}: captured != eager body (bitwise {same}; epochs {cap.n_iters}, "
+              f"{eager.n_iters})")
+        times = []
+        for _ in range(2):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = sgd.sgd(bp, w0, x, y, opts)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / res.n_iters)
+        check(Resident.captures == c0 + 1, f"SGD {sampling}: the timed solves captured again")
+        lh = res.loss_history[:res.n_iters].cpu().numpy()
+        check(res.n_iters == FO_SGD_EPOCHS and bool(np.isfinite(lh).all()) and lh[-1] < lh[0],
+              f"SGD {sampling}: {res.n_iters} epochs, losses {lh}")
+        bound = -(-res.n_iters // sgd.RESIDENT_CHUNK) + 2
+        check(res.n_host_syncs <= bound, f"SGD {sampling}: {res.n_host_syncs} host syncs > {bound}")
+        sgd_ms[sampling] = min(times)
+        b, m, rem = sgd._sizes(opts, N_TRAIN)
+        say("first_order", f"SGD {sampling} (N={N_TRAIN:,}, b={b}: {m} batches"
+            f"{f' and a {rem}-row tail' if rem else ''} per epoch as {m // sgd.SEGMENT} replays "
+            f"of a {sgd.SEGMENT}-step segment graph and {m % sgd.SEGMENT} steps in the finish; "
+            f"the full-data record): captured = eager body bitwise over the timed solve's "
+            f"first {FO_SGD_CHECK} epochs {same}, its graphs the timed ones; "
+            f"{sgd_ms[sampling]:.4f} ms/epoch captured over {res.n_iters} epochs (CUDA events, "
+            f"min of {[round(t, 4) for t in times]}); capture {capture_s:.3f} s; host "
+            f"syncs {res.n_host_syncs} per solve (<= {bound}); loss {lh[0]:.6g} -> {lh[-1]:.6g}")
+        if profile:
+            _profile(torch, lambda: sgd.sgd(bp, w0, x, y, opts), unit="epoch")
+    clear_graph_cache()
+    # a step's batch is a gather of b rows of x and y (the device step makes
+    # it one where JAX slices): its device time, 100 gathers in a CUDA graph
+    idx = torch.arange(256, device=dev) + 256 * 100
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        take_batch(x, y, idx)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        for _ in range(100):
+            take_batch(x, y, idx)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    gather_us = start.elapsed_time(end) * 10.0
+    del graph
+    say("first_order", f"a step's batch gather (index_select of 256 rows of x and y): "
+        f"{gather_us:.2f} us of device time (100 in a CUDA graph), {gather_us * 234 / 1e3:.3f} "
+        f"ms of an epoch's 234 steps ({gather_us * 234 / 1e3 / sgd_ms['sequential'] * 100:.1f}% "
+        "of the sequential epoch)")
+
+    # (d) sgd_streaming from the port's streamer, pinned buffers
+    opts = sgd.SGDOptions(epochs=2, batch_size=256, step_size=0.01, momentum=0.9)
+
+    def full_eval(w):
+        f, g = bp.value_and_grad(w, x, y)
+        return f, torch.linalg.norm(g)
+
+    f0 = float(bp.fun(w0, x, y))
+    x_h, y_h = x.cpu().numpy(), y.cpu().numpy()
+    with BatchStreamer(x_h, y_h, 256, seed=SEED, device=dev) as st:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = sgd.sgd_streaming(bp, w0, st, opts, full_eval_fn=full_eval)
+        torch.cuda.synchronize()
+        stream_ms = (time.perf_counter() - t0) * 1e3 / opts.epochs
+        pinned = st.pinned
+    lh = rs.loss_history.cpu().numpy()
+    check(pinned and bool(np.isfinite(lh).all()) and lh[1] < lh[0] < f0,
+          f"sgd_streaming: losses {f0} -> {lh} not finite and falling (pinned {pinned})")
+    say("first_order", f"sgd_streaming (BatchStreamer, pinned buffers, depth 4, b=256, N="
+        f"{N_TRAIN:,}, momentum 0.9, the full-data record): {stream_ms:.4f} ms/epoch (host "
+        f"clock, 2 epochs) against the resident SGD's {sgd_ms['random']:.4f} (random batches); "
+        f"full loss {f0:.6g} -> {lh[0]:.6g} -> {lh[1]:.6g}")
+    split = _stream_split(torch, dev, bp, w0, x_h, y_h, x, y)
+    steps = split.pop("steps")
+    rest = stream_ms / steps - sum(split.values())
+    say("first_order", f"a streamed step's host time, each part alone over one epoch's {steps} "
+        f"batches (host clock): {stream_ms / steps:.4f} ms per step streamed = "
+        + " + ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f" + {rest:.4f} not in the parts (the producer thread beside the update, the epoch "
+        "records)")
+    say("first_order", f"phase time {time.perf_counter() - t_phase:.1f} s")
+    return {"runner": dict(runner_launches), "gd_ms": gd_ms, "sgd_ms": sgd_ms,
+            "stream_ms": stream_ms}
+
+
+def _stream_split(torch, dev, bp, w0, x_h, y_h, x, y) -> dict:
+    """ms per step, host clock, over one epoch's batches, of each part of a
+    ``sgd_streaming`` step alone: the stream's ``next()`` (its producer
+    alone), the batch's copy from a pinned buffer on a copy stream with its
+    event waited for, and the masked update (``grad_and_value`` of
+    ``fun_masked`` and the momentum step, as ``sgd_streaming`` runs it) on
+    a batch already on the card, the card synchronized at the end."""
+    from lbfgs_ffnn_torch.runtime import BatchStreamer
+    from lbfgs_ffnn_torch.solvers.common import full_f32
+
+    out, calls = {}, 0
+    with BatchStreamer(x_h, y_h, 256, seed=SEED, device=dev) as st:
+        st.next()  # the producer has started
+        t0 = time.perf_counter()
+        while True:
+            xb, yb, count, epoch = st.next()
+            calls += 1
+            if epoch:
+                break
+        out["next()"] = (time.perf_counter() - t0) * 1e3 / calls
+        steps = calls  # the first call's batch, then the epoch's others
+        copy_stream = torch.cuda.Stream(device=dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            with torch.cuda.stream(copy_stream):
+                xd, yd = xb.to(dev, non_blocking=True), yb.to(dev, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(copy_stream)
+            copied.synchronize()
+        out["copy"] = (time.perf_counter() - t0) * 1e3 / steps
+    vag = torch.func.grad_and_value(bp.fun_masked)
+    xd, yd, cols = x[:256], y[:256], torch.arange(256, device=dev)
+    with full_f32(), torch.no_grad():
+        w, v = w0.clone(), torch.zeros_like(w0)
+        lr = torch.full((), 0.01, dtype=w.dtype, device=dev)
+        vag(w, xd, yd, (cols < 256).to(w.dtype))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            g, _loss = vag(w, xd, yd, (cols < 256).to(w.dtype))
+            v = 0.9 * v - lr * g
+            w = w + v
+        torch.cuda.synchronize()
+        out["update"] = (time.perf_counter() - t0) * 1e3 / steps
+    out["steps"] = steps
+    return out
+
+
 def bench_phase():
     """The port's bench (python -m lbfgs_ffnn_torch.experiments.bench) in a
     process of its own: its last stdout line must be the contract JSON with
@@ -1573,6 +1925,8 @@ def main() -> None:
     bench = bench_phase()
     launches_sl, sl_ms, sl_k1_us = stochastic_phase(torch, dev, args.profile, args.mnist_root)
     pinn = pinn_phase(torch, dev, args.profile)
+    fo = first_order_phase(torch, dev, args.profile, args.mnist_root)
+    runner1, runner2 = fo["runner"].get(COOPERATIVE, 0), fo["runner"].get(STREAMING, 0)
 
     def entry(name, impl, replaces, launches, worst, m, n):
         ms, b_ms, b_by, _, k_pick, d_pick = table[m, n, "f32"]
@@ -1593,15 +1947,16 @@ def main() -> None:
     k1_pinn, k1_ring = pinn["K1"]
     k2_pinn, k2_ring = pinn["K2"]
     k1 = entry("two_loop_cooperative", COOPERATIVE, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:173",
-               launches1r + launches_sl + k1_pinn, worst1, M, n)
+               launches1r + launches_sl + k1_pinn + runner1, worst1, M, n)
     # K1 and K2 run on several main paths, each counted from 0 just before its
     # solve; their PINN ring shapes are timed in the pinn phase
     k1["launches_by_path"] = {"resident L-BFGS": launches1r, "stochastic S-LBFGS": launches_sl,
-                              "PINN oscillator": k1_pinn}
+                              "PINN oscillator": k1_pinn, "runner MNIST": runner1}
     k1["pinn_ring"] = k1_ring
     k2 = entry("two_loop_streaming", STREAMING, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:81",
-               launches2 + k2_pinn, worst2, M_DEEP, _n_params(DEEP_DIMS))
-    k2["launches_by_path"] = {"deep Fashion L-BFGS": launches2, "PINN Burgers": k2_pinn}
+               launches2 + k2_pinn + runner2, worst2, M_DEEP, _n_params(DEEP_DIMS))
+    k2["launches_by_path"] = {"deep Fashion L-BFGS": launches2, "PINN Burgers": k2_pinn,
+                              "runner MNIST": runner2}
     k2["pinn_ring"] = k2_ring
     kernels = [
         k1,
@@ -1621,6 +1976,10 @@ def main() -> None:
         + (f" (K1 {sl_k1_us:.2f} us device/call)" if sl_k1_us is not None else "")
         + f"; PINN ms/iter: Burgers {pinn['burgers_ms']:.4f}, oscillator "
         f"{pinn['oscillator_ms']:.4f}"
+        + "; GD N=60000 ms/iter: " + ", ".join(f"{k} {v:.4f}" for k, v in fo["gd_ms"].items())
+        + "; SGD N=60000 b=256 ms/epoch: " + ", ".join(f"{k} {v:.4f}"
+                                                       for k, v in fo["sgd_ms"].items())
+        + f", streamed {fo['stream_ms']:.4f}"
         + f"; whole script {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,17 +8,19 @@ loaders, the MLP objective with its carried line prefix, the analytic
 objectives, the Armijo and Wolfe line searches, the curvature ring with f32
 or bf16 pairs, the two-loop recursion as plain torch and as three
 hand-written Hopper kernels with their size dispatch, the L-BFGS solver with
-both searches, gradient descent, S-LBFGS with its batch problem and its
-device-side sampler, the Burgers and oscillator PINNs with their runners
-and the FD oracle, the recorder, the launcher, the MNIST runner, the
-harness and the large-n two-loop diagnostic).
+both searches, gradient descent with its three branches, SGD (resident
+and streamed, with the prefetching batch streamer), S-LBFGS with its batch
+problem and its device-side sampler, the Burgers and oscillator PINNs with
+their runners and the FD oracle, the recorder, the launcher, the MNIST
+runner, the harness and the large-n two-loop diagnostic).
 """
 
 from lbfgs_ffnn_torch.types import (
     BatchProblem, Problem, SolveResult, make_batch_problem, make_problem,
 )
 from lbfgs_ffnn_torch.solvers import (
-    GDOptions, LBFGSOptions, SLBFGSOptions, gradient_descent, lbfgs, slbfgs, slbfgs_chunked,
+    GDOptions, LBFGSOptions, SGDOptions, SLBFGSOptions, gradient_descent, lbfgs, sgd, slbfgs,
+    slbfgs_chunked,
 )
 
 __version__ = "0.1.0"
@@ -33,6 +35,8 @@ __all__ = [
     "gradient_descent",
     "LBFGSOptions",
     "lbfgs",
+    "SGDOptions",
+    "sgd",
     "SLBFGSOptions",
     "slbfgs",
     "slbfgs_chunked",

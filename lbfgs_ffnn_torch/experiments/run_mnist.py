@@ -6,13 +6,18 @@ Style "cuda" (reference main-gpu.cpp: 60,000 samples):
   GD(mom .9) -> SGD(b=256, decay .8/40) -> L-BFGS m=10 -> L-BFGS m=100,
   with ``--bf16-ring`` adding L-BFGS m=10 and m=100 on a bfloat16 ring.
 Style "cpu" (reference main-cpu.cpp: 5,000 samples):
-  GD(mom .9) -> SGD -> S-LBFGS -> L-BFGS(m=20, Wolfe).
+  GD(mom .9) -> SGD(b=256, lr .03) -> S-LBFGS -> L-BFGS(m=20, Wolfe).
 
-Runs on the card unless ``--device cpu``; the rows whose solver is not
-ported yet (SGD) are named on one line and not run. Each run writes
-``<name>_history.csv`` into ``--out-dir``; ``--timed-chunks K`` runs the
-L-BFGS rows (Armijo and Wolfe) in K-iteration chunks and the S-LBFGS row in
-K-epoch chunks, with a measured ``TimeMs`` column.
+Runs on the card unless ``--device cpu``. Each run writes
+``<name>_history.csv`` into ``--out-dir`` (``--record-accuracy`` adds the
+SGD and S-LBFGS rows' TrainAcc and TestAcc columns), and the runner writes
+``run_meta.json`` there; ``--timed-chunks K`` runs every solver in
+K-iteration (K-epoch) chunks with a measured ``TimeMs`` column (-1: SGD's
+whole run as one chunk, the others ``max(50, iters // 5)``); ``--seeds N``
+runs each row at init seeds seed, seed + 1, ... and writes their ms/iter
+and final losses to ``multiseed_summary.json``. The seed is an argument of
+each solve, not part of a captured graph: the seeds of a row share its
+captures.
 
 Usage:
   python -m lbfgs_ffnn_torch.experiments.run_mnist --dataset fashion --deep --data-root DIR
@@ -21,14 +26,15 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import json
+import sys
+import time
 from pathlib import Path
+
+import torch
 
 from lbfgs_ffnn_torch.data.datasets import load_fashion_mnist, load_mnist
 from lbfgs_ffnn_torch.launcher import Launcher, TrainReport, UnifiedConfig
-
-# (solver, style) rows not ported yet -> what they wait for
-_DEFERRED = {("sgd", "cpu"): "SGD, ROADMAP queue 1 item 7",
-             ("sgd", "cuda"): "SGD, ROADMAP queue 1 item 7"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,9 +58,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", default=".", help="where the history CSVs go")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     p.add_argument("--timed-chunks", type=int, default=0,
-                   help="K > 0: run L-BFGS in K-iteration chunks (lbfgs_chunked) and "
-                        "S-LBFGS in K-epoch chunks (slbfgs_chunked) with a measured TimeMs "
-                        "column (GD rows keep the whole-solve time)")
+                   help="K > 0: run every solver in K-iteration (K-epoch) chunks with a "
+                        "measured TimeMs column; -1: SGD's whole run as one chunk, the "
+                        "others max(50, iters // 5)")
+    p.add_argument("--record-accuracy", action="store_true",
+                   help="per-epoch TrainAcc and TestAcc columns for the SGD and S-LBFGS rows")
+    p.add_argument("--seeds", type=int, default=1,
+                   help="run each row at N init seeds (seed, seed + 1, ...); the first "
+                        "writes the CSV, multiseed_summary.json gets each seed's ms/iter "
+                        "and final loss and their median, min and max")
     return p
 
 
@@ -67,7 +79,9 @@ def run_list(args) -> list[tuple[str, UnifiedConfig]]:
             ("gd", UnifiedConfig(name=f"{name}_Unified_GD", max_iters=args.iters,
                                  tolerance=1e-4, learning_rate=0.01, momentum=0.9,
                                  log_interval=1)),
-            ("sgd", UnifiedConfig(name=f"{name}_SGD", max_iters=args.iters)),
+            ("sgd", UnifiedConfig(name=f"{name}_SGD", max_iters=args.iters,
+                                  tolerance=1e-4, learning_rate=0.03, batch_size=256,
+                                  log_interval=5)),
             ("slbfgs", UnifiedConfig(name=f"{name}_SLBFGS", max_iters=args.iters,
                                      tolerance=1e-4, learning_rate=0.02, batch_size=256,
                                      m_param=10, L_param=10, b_H_param=128,
@@ -81,7 +95,9 @@ def run_list(args) -> list[tuple[str, UnifiedConfig]]:
             ("gd", UnifiedConfig(name=f"{name}_GD", max_iters=args.iters,
                                  tolerance=1e-3, learning_rate=0.02, momentum=0.9,
                                  log_interval=1)),
-            ("sgd", UnifiedConfig(name=f"{name}_SGD", max_iters=args.iters)),
+            ("sgd", UnifiedConfig(name=f"{name}_SGD", max_iters=args.iters,
+                                  tolerance=1e-3, learning_rate=0.01, batch_size=256,
+                                  log_interval=5, lr_decay=0.80, lr_decay_rate=40)),
             ("lbfgs", UnifiedConfig(name=f"{name}_LBFGS_m10", max_iters=args.iters,
                                     tolerance=1e-3, m_param=10, log_interval=1,
                                     two_loop_impl=two_loop)),
@@ -98,8 +114,31 @@ def run_list(args) -> list[tuple[str, UnifiedConfig]]:
     return runs
 
 
+def _timed_chunks(args, solver: str, cfg: UnifiedConfig) -> int:
+    """The row's chunk: ``--timed-chunks`` when positive; with -1, SGD's
+    whole run as one chunk and the others ``max(50, iters // 5)`` (JAX's
+    rule)."""
+    if args.timed_chunks == -1:
+        return cfg.max_iters if solver == "sgd" else max(50, cfg.max_iters // 5)
+    return max(args.timed_chunks, 0)
+
+
+def _median(values: list) -> float:
+    v = sorted(values)
+    return v[len(v) // 2] if len(v) % 2 else (v[len(v) // 2 - 1] + v[len(v) // 2]) / 2
+
+
+def _merge_json(path: Path, update: dict) -> None:
+    """Merge ``update`` into the JSON object at ``path`` (a partial
+    regeneration with ``--only`` keeps the other rows)."""
+    merged = json.loads(path.read_text()) if path.exists() else {}
+    merged.update(update)
+    path.write_text(json.dumps(merged, indent=2, sort_keys=True) + "\n")
+
+
 def main(argv=None) -> list[tuple[str, UnifiedConfig, TrainReport]]:
-    """Run the configured rows; returns (solver, config, report) per run."""
+    """Run the configured rows; returns (solver, config, report) per run,
+    the first seed's of each row."""
     parser = build_parser()
     args = parser.parse_args(argv)
     runs = run_list(args)
@@ -107,11 +146,6 @@ def main(argv=None) -> list[tuple[str, UnifiedConfig, TrainReport]]:
         runs = [(s, c) for s, c in runs if args.only in c.name]
         if not runs:
             parser.error(f"--only {args.only!r} matches no configured run")
-    deferred = [f"{c.name} ({_DEFERRED[s, args.style]})" for s, c in runs
-                if (s, args.style) in _DEFERRED]
-    runs = [(s, c) for s, c in runs if (s, args.style) not in _DEFERRED]
-    if deferred:
-        print("not run, not ported yet: " + "; ".join(deferred))
 
     train_size = args.train_size or (5000 if args.style == "cpu" else 60000)
     loader = load_mnist if args.dataset == "mnist" else load_fashion_mnist
@@ -120,7 +154,8 @@ def main(argv=None) -> list[tuple[str, UnifiedConfig, TrainReport]]:
         print("NOTE: image files missing; training on synthetic class-structured "
               "images with the label stream.")
 
-    launcher = Launcher(backend_style=args.style, device=args.device, out_dir=Path(args.out_dir))
+    out_dir = Path(args.out_dir)
+    launcher = Launcher(backend_style=args.style, device=args.device, out_dir=out_dir)
     if args.deep:
         launcher.add_layer(784, 256, "relu").add_layer(256, 128, "relu")
         launcher.add_layer(128, 64, "relu").add_layer(64, 10, "linear")
@@ -128,14 +163,58 @@ def main(argv=None) -> list[tuple[str, UnifiedConfig, TrainReport]]:
         launcher.add_layer(784, 128, "relu").add_layer(128, 10, "linear")
     launcher.build_network().set_data(ds)
 
-    done = []
+    done, meta_runs, multiseed = [], [], {}
     for solver, cfg in runs:
-        if solver in ("slbfgs", "lbfgs") and args.timed_chunks > 0:
-            cfg.timed_chunks = args.timed_chunks
-        print(f"Running {cfg.name} ({solver}, seed={cfg.seed})...")
-        report = launcher.train(solver, cfg)
-        launcher.test()
-        done.append((solver, cfg, report))
+        cfg.record_accuracy = args.record_accuracy and solver in ("sgd", "slbfgs")
+        cfg.timed_chunks = _timed_chunks(args, solver, cfg)
+        seeds = [cfg.seed + k for k in range(max(args.seeds, 1))]
+        per_seed = {"solver": solver, "seeds": seeds, "ms_per_iter": [], "final_loss": [],
+                    "n_iters": []}
+        for k, seed in enumerate(seeds):
+            cfg.seed, cfg.write_csv = seed, k == 0  # the first seed writes the CSV
+            print(f"Running {cfg.name} ({solver}, seed={seed})...")
+            report = launcher.train(solver, cfg)
+            launcher.test()
+            n = max(int(report.result.n_iters), 1)
+            ms = (float(report.history.time_ms[n - 1]) / n if cfg.timed_chunks > 0
+                  else report.ms_per_iter)
+            per_seed["ms_per_iter"].append(ms)
+            per_seed["final_loss"].append(float(report.result.final_loss))
+            per_seed["n_iters"].append(n)
+            if k == 0:
+                done.append((solver, cfg, report))
+        cfg.seed = seeds[0]
+        ms = per_seed["ms_per_iter"]
+        per_seed.update(ms_per_iter_median=_median(ms), ms_per_iter_min=min(ms),
+                        ms_per_iter_max=max(ms))
+        if len(seeds) > 1 or (out_dir / "multiseed_summary.json").exists():
+            multiseed[cfg.name] = per_seed
+        meta_runs.append({"name": cfg.name, "solver": solver, "max_iters": cfg.max_iters,
+                          "timed_chunks": cfg.timed_chunks, "seeds": seeds})
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if multiseed:
+        _merge_json(out_dir / "multiseed_summary.json", multiseed)
+    device = launcher.device
+    meta_path = out_dir / "run_meta.json"
+    runs_by_name = {}
+    if args.only and meta_path.exists():
+        runs_by_name = {r["name"]: r for r in json.loads(meta_path.read_text())["runs"]}
+    runs_by_name.update({r["name"]: r for r in meta_runs})
+    _merge_json(meta_path, {
+        "cmd": "python -m lbfgs_ffnn_torch.experiments.run_mnist " + " ".join(
+            sys.argv[1:] if argv is None else argv),
+        "date_utc": time.strftime("%Y-%m-%d %H:%M:%S", time.gmtime()),
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "train_size": train_size,
+        "synthetic_images": bool(ds.synthetic_images),
+        "timems_semantics": (
+            "Cumulative wall time measured at chunk boundaries (the pipelined chunk "
+            "driver enqueues chunk c+1 before it reads chunk c); the rows of a chunk "
+            "share one time. timed_chunks=0: the whole solve's time (CUDA events on the "
+            "card) spread evenly over its iterations."),
+        "runs": list(runs_by_name.values()),
+    })
     return done
 
 

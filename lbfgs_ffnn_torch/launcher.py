@@ -5,28 +5,33 @@ src/unified_optimization.hpp:26-48, src/unified_launcher.hpp):
 ``add_layer -> build_network -> set_data -> train(solver, config) -> test()``.
 
 Backend styles select solver policy as in the JAX package: ``"cuda"`` is
-Armijo with interpolation for L-BFGS (20 trials) and zero biases at init,
-``"cpu"`` Wolfe for L-BFGS (50 trials) and random biases. The launcher runs on ``device``, which
-is ``"cuda"`` unless the caller passes ``"cpu"``; without a card it raises
-and never moves to the CPU on its own.
+Armijo with interpolation for L-BFGS (20 trials), sequential batches with
+momentum, decay and the relative-improvement stop for SGD, and zero biases
+at init; ``"cpu"`` is Wolfe for L-BFGS (50 trials), random batches with
+plain steps for SGD, and random biases. The launcher runs on ``device``,
+which is ``"cuda"`` unless the caller passes ``"cpu"``; without a card it
+raises and never moves to the CPU on its own.
 
 Timing: a short warm-up (``WARMUP_ITERS`` iterations or epochs) first pays
-the one-time costs of a process (the nvcc builds, cuBLAS set-up) and, for
-L-BFGS (Armijo and Wolfe) and S-LBFGS on the card, captures the timed
-solve's iteration or epoch as a CUDA graph; then the timed solve runs, its
-wall time from CUDA events around it on the card. With ``timed_chunks = K >
-0`` (L-BFGS, S-LBFGS), the solve is ``lbfgs_chunked`` or
-``slbfgs_chunked`` in K-iteration (K-epoch) chunks and the CSV's ``TimeMs``
-column is its measured cumulative time per chunk, as in the JAX package;
-without it, the whole solve's time is spread over the iterations.
+the one-time costs of a process (the nvcc builds, cuBLAS set-up) and, on
+the card, captures the timed solve's iteration (GD, L-BFGS) or epoch (SGD,
+S-LBFGS) as CUDA graphs; then the timed solve runs, its wall time from CUDA
+events around it on the card, capture excluded. With ``timed_chunks = K >
+0`` the solve is ``gd_chunked``, ``lbfgs_chunked``, ``sgd_chunked`` or
+``slbfgs_chunked`` in K-iteration (K-epoch) chunks and the CSV's
+``TimeMs`` column is its measured cumulative time per chunk, as in the JAX
+package; without it, the whole solve's time is spread over the iterations.
 
-Ported: ``"gd"``, ``"lbfgs"`` (Armijo and Wolfe) and ``"slbfgs"`` (its
-options mapped as the JAX launcher's ``_slbfgs_opts``: lam 1e-4 when 0,
-``m_inner = N // batch_size``, ``b_H = batch_size // 2`` unless set). Not
-ported yet, and raising ``NotImplementedError`` with their ROADMAP item
-when asked for: ``"sgd"``, ``timed_chunks > 0`` for GD, ``compute_dtype``, ``prefix_dtype``, the ``*_input_dtype`` copies
-and ``ls_alpha_init="warm"``. The config fields only those read (decay,
-``record_accuracy``, ...) return with them.
+Every solver of the JAX Launcher is ported: ``"gd"``, ``"lbfgs"`` (Armijo
+and Wolfe), ``"sgd"`` (its options mapped as the JAX launcher's
+``_sgd_opts``) and ``"slbfgs"`` (as ``_slbfgs_opts``: lam 1e-4 when 0,
+``m_inner = N // batch_size``, ``b_H = batch_size // 2`` unless set).
+``record_accuracy`` records the stochastic solvers' per-epoch accuracy,
+``[TrainAcc, TestAcc]`` with a held-out split (``TrainAcc`` alone without),
+as extra CSV columns. Not ported yet, and raising ``NotImplementedError``
+with their ROADMAP item: ``compute_dtype``, ``prefix_dtype``, the
+``*_input_dtype`` copies (the uint8 input among them) and
+``ls_alpha_init="warm"``.
 """
 
 from __future__ import annotations
@@ -40,19 +45,26 @@ import torch
 
 from lbfgs_ffnn_torch.data.datasets import Dataset
 from lbfgs_ffnn_torch.objectives.mlp import (
-    MLPSpec, evaluate, mlp_batch_problem, mlp_init, mlp_problem, mlp_spec,
+    MLPSpec, evaluate, mlp_apply, mlp_batch_problem, mlp_init, mlp_problem, mlp_spec,
 )
 from lbfgs_ffnn_torch.recorder import History, history_from_result, write_history_csv
-from lbfgs_ffnn_torch.solvers.gd import GDOptions, gradient_descent
+from lbfgs_ffnn_torch.solvers.gd import GDOptions, gd_chunked, gd_warm_up, gradient_descent
 from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, lbfgs, lbfgs_chunked, lbfgs_warm_up
-from lbfgs_ffnn_torch.solvers.slbfgs import _solve as _slbfgs_solve
-from lbfgs_ffnn_torch.solvers.slbfgs import SLBFGSOptions, slbfgs, slbfgs_chunked
+from lbfgs_ffnn_torch.solvers.sgd import SGDOptions, sgd, sgd_chunked, sgd_warm_up
+from lbfgs_ffnn_torch.solvers.slbfgs import (
+    SLBFGSOptions, slbfgs, slbfgs_chunked, slbfgs_warm_up,
+)
 from lbfgs_ffnn_torch.types import SolveResult
 
 WARMUP_ITERS = 2
 
-# solver -> ROADMAP queue 1 item that ports it
-_UNPORTED_SOLVERS = {"sgd": 7}
+# solver -> (its whole solve, its chunked driver, its options' length field,
+# its warm-up: the first iterations or epochs of the whole solve, its step
+# captured on the card)
+_DRIVERS = {"gd": (gradient_descent, gd_chunked, "max_iters", gd_warm_up),
+            "lbfgs": (lbfgs, lbfgs_chunked, "max_iters", lbfgs_warm_up),
+            "sgd": (sgd, sgd_chunked, "epochs", sgd_warm_up),
+            "slbfgs": (slbfgs, slbfgs_chunked, "epochs", slbfgs_warm_up)}
 # L-BFGS trial budget per line search: the reference CPU's Wolfe
 # (full_batch_minimizer.hpp), the reference CUDA backend's Armijo
 # (minimizer_base.cuh)
@@ -81,7 +93,9 @@ class UnifiedConfig:
     tolerance: float = 1e-4
     learning_rate: float = 0.01
     momentum: float = 0.0
-    batch_size: int = 128        # S-LBFGS: b (m_inner = N // b)
+    lr_decay: float = 0.0        # SGD: > 0 multiplies the lr every lr_decay_rate epochs
+    lr_decay_rate: int = 1
+    batch_size: int = 128        # SGD: b; S-LBFGS: b (m_inner = N // b)
     m_param: int = 10
     L_param: int = 10            # S-LBFGS: curvature update interval
     b_H_param: int = 0           # S-LBFGS: HVP batch; 0 -> batch_size // 2
@@ -93,7 +107,8 @@ class UnifiedConfig:
     write_csv: bool = True
     line_search: str = ""        # L-BFGS override: "" = backend style
     pair_dtype: Optional[str] = None  # "bfloat16": the curvature ring in bf16
-    timed_chunks: int = 0  # K > 0: measured K-iteration chunks (L-BFGS, S-LBFGS)
+    timed_chunks: int = 0  # K > 0: measured K-iteration (K-epoch) chunks
+    record_accuracy: bool = False  # SGD, S-LBFGS: per-epoch TrainAcc (and TestAcc) columns
     # Not ported yet: anything but these values raises.
     compute_dtype: Optional[str] = None
     prefix_dtype: Optional[str] = None
@@ -114,19 +129,15 @@ class TrainReport:
 
     @property
     def ms_per_iter(self) -> float:
+        """Milliseconds per iteration of the timed solve: per epoch for the
+        stochastic solvers (SGD, S-LBFGS), whose ``n_iters`` counts epochs."""
         n = max(int(self.result.n_iters), 1)
         return self.wall_time_s * 1e3 / n
 
 
 def _check_ported(solver: str, c: UnifiedConfig) -> None:
-    if solver in _UNPORTED_SOLVERS:
-        raise NotImplementedError(f"solver {solver!r} is not ported yet "
-                                  f"(ROADMAP queue 1 item {_UNPORTED_SOLVERS[solver]})")
-    if solver not in ("gd", "lbfgs", "slbfgs"):
+    if solver not in _DRIVERS:
         raise ValueError(f"unknown solver {solver!r}")
-    if solver == "gd" and c.timed_chunks > 0:
-        raise NotImplementedError("UnifiedConfig(timed_chunks > 0) for GD is not ported yet "
-                                  "(gd_chunked on the resident driver, ROADMAP queue 1 item 2)")
     for name, (unused, item) in _UNPORTED_FIELDS.items():
         if getattr(c, name) != unused:
             raise NotImplementedError(f"UnifiedConfig({name}={getattr(c, name)!r}) is not "
@@ -167,6 +178,7 @@ class Launcher:
         self.spec = mlp_spec(self._dims, self._acts)
         self._problem = mlp_problem(self.spec)
         self._batch_problems = {}  # lam -> one BatchProblem: captured epochs key on it
+        self._accuracy = None      # the metric: captured epochs key on it too
         self._bind_params(seed)
         return self
 
@@ -181,6 +193,7 @@ class Launcher:
 
         self._x, self._y = put(dataset.train_x), put(dataset.train_y)
         self._tx, self._ty = put(dataset.test_x), put(dataset.test_y)
+        self._accuracy = None  # its columns depend on the held-out split
         return self
 
     # -- training -----------------------------------------------------------
@@ -196,15 +209,10 @@ class Launcher:
         if config.timed_chunks > 0:
             # the chunked drivers capture their step before the first chunk
             # and measure the chunks alone
+            problem, data, opts, kw = self._call(solver, config)
             t0 = time.perf_counter()
-            if solver == "slbfgs":
-                result, measured_ms = slbfgs_chunked(
-                    self._batch_problem(config), self.weights, self._x, self._y,
-                    self._slbfgs_opts(config), chunk=config.timed_chunks)
-            else:
-                result, measured_ms = lbfgs_chunked(
-                    self._problem, self.weights, (self._x, self._y), self._lbfgs_opts(config),
-                    chunk=config.timed_chunks)
+            result, measured_ms = _DRIVERS[solver][1](problem, self.weights, *data, opts,
+                                                      chunk=config.timed_chunks, **kw)
             wall = time.perf_counter() - t0
         else:
             warmup_iters = self._warm_up(solver, config).n_iters
@@ -218,7 +226,12 @@ class Launcher:
         if config.write_csv:
             self.out_dir.mkdir(parents=True, exist_ok=True)
             csv_path = str(self.out_dir / f"{config.name}_history.csv")
-            write_history_csv(csv_path, history, config.log_interval)
+            extra = None
+            if result.metric_history is not None:
+                mh = result.metric_history[:history.n].detach().cpu().double().numpy()
+                extra = ({"TrainAcc": mh[:, 0], "TestAcc": mh[:, 1]} if mh.ndim == 2
+                         else {"TrainAcc": mh})
+            write_history_csv(csv_path, history, config.log_interval, extra)
 
         train_eval = evaluate(self.spec, self.weights, self._x, self._y)
         if verbose:
@@ -240,19 +253,12 @@ class Launcher:
         return TrainReport(result, history, wall, csv_path, train_eval, warmup_iters)
 
     def _warm_up(self, solver: str, c: UnifiedConfig) -> SolveResult:
-        """``WARMUP_ITERS`` iterations (epochs) before the timed solve; for
-        L-BFGS and S-LBFGS on the card, of the timed solve's own captured
-        iteration or epoch (captured here, so the timed solve replays it
-        from the cache)."""
-        n = min(c.max_iters, WARMUP_ITERS)
-        if self.device.type == "cuda" and solver == "slbfgs":
-            return _slbfgs_solve(self._batch_problem(c), self.weights, self._x, self._y,
-                                 self._slbfgs_opts(c), chunk=max(n, 1), capture=True,
-                                 epochs=n)[0]
-        if solver == "lbfgs":
-            return lbfgs_warm_up(self._problem, self.weights, (self._x, self._y),
-                                 self._lbfgs_opts(c), iters=n)
-        return self._solve(solver, c, n)
+        """``WARMUP_ITERS`` iterations (epochs) before the timed solve; on the
+        card, of the timed solve's own captured iteration or epoch (captured
+        here, so the timed solve replays it from the cache)."""
+        problem, data, opts, kw = self._call(solver, c)
+        return _DRIVERS[solver][3](problem, self.weights, *data, opts,
+                                   min(c.max_iters, WARMUP_ITERS), **kw)
 
     def _timed(self, run) -> tuple[SolveResult, float]:
         """``run()`` and its wall time in seconds: CUDA events on a CUDA
@@ -269,16 +275,21 @@ class Launcher:
         result = run()
         return result, time.perf_counter() - t0
 
+    def _call(self, solver: str, c: UnifiedConfig) -> tuple:
+        """The solver's arguments but the start: ``(problem, data, options,
+        keywords)``, ``data`` the aux tuple of the full-batch solvers and
+        ``(x, y)`` of the stochastic ones."""
+        if solver in ("gd", "lbfgs"):
+            opts = self._gd_opts(c) if solver == "gd" else self._lbfgs_opts(c)
+            return self._problem, ((self._x, self._y),), opts, {}
+        opts = self._sgd_opts(c) if solver == "sgd" else self._slbfgs_opts(c)
+        return (self._batch_problem(c, solver), (self._x, self._y), opts,
+                {"metric_args": self._metric_args(c)})
+
     def _solve(self, solver: str, c: UnifiedConfig, max_iters: int) -> SolveResult:
-        aux = (self._x, self._y)
-        if solver == "gd":
-            return gradient_descent(self._problem, self.weights, aux,
-                                    self._gd_opts(c)._replace(max_iters=max_iters))
-        if solver == "slbfgs":
-            return slbfgs(self._batch_problem(c), self.weights, self._x, self._y,
-                          self._slbfgs_opts(c)._replace(epochs=max_iters))
-        return lbfgs(self._problem, self.weights, aux,
-                     self._lbfgs_opts(c)._replace(max_iters=max_iters))
+        whole, _, length, _ = _DRIVERS[solver]
+        problem, data, opts, kw = self._call(solver, c)
+        return whole(problem, self.weights, *data, opts._replace(**{length: max_iters}), **kw)
 
     def _lbfgs_opts(self, c: UnifiedConfig) -> LBFGSOptions:
         ls = c.line_search or ("armijo" if self.backend_style == "cuda" else "wolfe")
@@ -294,18 +305,60 @@ class Launcher:
             two_loop_impl=c.two_loop_impl, pair_dtype=c.pair_dtype,
         )
 
-    def _batch_problem(self, c: UnifiedConfig):
-        """The S-LBFGS objective: lam 1e-4 when the config leaves it 0 (the
-        reference strategy's L2, unified_optimization.hpp:375,398)."""
-        lam = c.lam if c.lam > 0 else 1e-4
+    def _batch_problem(self, c: UnifiedConfig, solver: str = "slbfgs"):
+        """The stochastic objective: S-LBFGS's L2 is lam, 1e-4 when the config
+        leaves it 0 (the reference strategy's, unified_optimization.hpp:375,
+        398); SGD's has none, as the JAX Launcher's."""
+        lam = 0.0 if solver == "sgd" else (c.lam if c.lam > 0 else 1e-4)
         if lam not in self._batch_problems:
             self._batch_problems[lam] = mlp_batch_problem(self.spec, lam=lam)
         return self._batch_problems[lam]
+
+    def _accuracy_metric(self):
+        """The per-epoch accuracy metric: [TrainAcc, TestAcc] when a held-out
+        split exists (the reference plot tooling's optional panels,
+        scripts/plot_results.py:107-127), else TrainAcc alone. Returns
+        ``(metric_fn, metric_args)``: the test split is an operand of the
+        solve, as the train split is, never a constant of a captured graph."""
+        margs = (self._tx, self._ty) if self._tx is not None and self._tx.shape[0] > 0 else ()
+        if self._accuracy is None:
+            spec = self.spec
+
+            def acc1(w, x, y):
+                pred = mlp_apply(spec, w, x).argmax(dim=1)
+                return (pred == y.argmax(dim=1)).to(w.dtype).mean() * 100.0
+
+            if margs:
+                def acc(w, x, y, tx, ty):
+                    return torch.stack([acc1(w, x, y), acc1(w, tx, ty)])
+            else:
+                acc = acc1
+            self._accuracy = acc
+        return self._accuracy, margs
+
+    def _metric_args(self, c: UnifiedConfig) -> tuple:
+        """The accuracy metric's operands (the held-out split), empty when
+        accuracy recording is off."""
+        return self._accuracy_metric()[1] if c.record_accuracy else ()
+
+    def _sgd_opts(self, c: UnifiedConfig) -> SGDOptions:
+        cuda = self.backend_style == "cuda"
+        return SGDOptions(
+            metric_fn=self._accuracy_metric()[0] if c.record_accuracy else None,
+            epochs=c.max_iters, batch_size=c.batch_size, step_size=c.learning_rate,
+            momentum=c.momentum if cuda else 0.0,
+            sampling="sequential" if cuda else "random",
+            lr_decay=c.lr_decay if c.lr_decay > 0 else 1.0,
+            lr_decay_step=c.lr_decay_rate if c.lr_decay > 0 else 0,
+            tol=c.tolerance if cuda else 0.0,
+            seed=c.seed,
+        )
 
     def _slbfgs_opts(self, c: UnifiedConfig) -> SLBFGSOptions:
         # The reference strategy's sizes: m_inner = N / batch, b_H = batch / 2
         # (unified_optimization.hpp:314-405).
         return SLBFGSOptions(
+            metric_fn=self._accuracy_metric()[0] if c.record_accuracy else None,
             epochs=c.max_iters, tol=c.tolerance,
             m_inner=max(int(self._x.shape[0]) // c.batch_size, 1),
             history=c.m_param, L=c.L_param, batch_size=c.batch_size,

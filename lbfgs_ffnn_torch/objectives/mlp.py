@@ -121,8 +121,7 @@ def params_from_numpy(spec: MLPSpec, w: np.ndarray, device=None,
 
 def slbfgs_state_from_numpy(spec: MLPSpec, state, device=None, dtype=torch.float32):
     """Carry an S-LBFGS state over from the JAX package: ``state`` has the
-    fields of ``lbfgs_ffnn_tpu.solvers.slbfgs._State`` (``metric_h`` is
-    ignored) as numpy arrays or anything ``np.asarray`` takes, e.g.
+    fields of ``lbfgs_ffnn_tpu.solvers.slbfgs._State`` as numpy arrays or anything ``np.asarray`` takes, e.g.
     ``jax.tree.map(np.asarray, state)``. The curvature rows are cut to the
     parameter count and padded to this package's row length; a 2-byte pair
     type becomes the bfloat16 ring (its values carried exactly). Returns the
@@ -156,6 +155,7 @@ def slbfgs_state_from_numpy(spec: MLPSpec, state, device=None, dtype=torch.float
         u_prev=vec(state.u_prev), has_u=arr(state.has_u, torch.bool),
         stop=arr(state.stop, torch.bool), gnorm=arr(state.gnorm, dtype),
         loss_h=arr(state.loss_h, dtype), gnorm_h=arr(state.gnorm_h, dtype),
+        metric_h=arr(state.metric_h, dtype),
     )
 
 

@@ -28,6 +28,10 @@ so no two indices share a hash either: the collision bias JAX's ``"topk"``
 documents, n^2/2^33 colliding pairs broken by index, does not arise.)
 ``"topk"`` takes them with ``torch.topk``, ``"sort"`` with a full argsort:
 the keys being distinct, both give the same indices in the same order.
+
+The seed may be a device tensor as well as an int: the solvers keep it in
+their device state, so that a captured epoch takes its seed at run time and
+one capture serves every seed.
 """
 
 from __future__ import annotations
@@ -54,9 +58,10 @@ def _mix(x):
     return x ^ (x >> 16)
 
 
-def stream_key(seed: int, *path) -> torch.Tensor | int:
-    """The key of one draw: ``seed`` hashed with each element of ``path``
-    in turn (Python ints or int tensors, each in [0, 2^31)), the counterpart
+def stream_key(seed, *path) -> torch.Tensor | int:
+    """The key of one draw: ``seed`` (an int, or an int64 tensor) hashed
+    with each element of ``path`` in turn (Python ints or int tensors, each
+    in [0, 2^31)), the counterpart
     of ``fold_in(...fold_in(PRNGKey(seed), path[0])..., path[-1])``."""
     h = _mix(seed & _M32)
     for p in path:
@@ -64,6 +69,11 @@ def stream_key(seed: int, *path) -> torch.Tensor | int:
             p = p.long()
         h = _mix(h ^ p)
     return h
+
+
+def device_seed(seed: int, device) -> torch.Tensor:
+    """``seed`` as the int64 device scalar the solvers' states hold."""
+    return torch.full((), seed, dtype=torch.int64, device=device)
 
 
 def sample_without_replacement(key: torch.Tensor, n: int, size: int,
@@ -100,7 +110,7 @@ class EpochSampler(NamedTuple):
     ``(epoch, t, 1)`` and ``(epoch, 2**20)``; a step's batch is the same
     whichever call draws it."""
 
-    seed: int
+    seed: int | torch.Tensor
     n: int
     b: int
     b_h: int
@@ -118,3 +128,24 @@ class EpochSampler(NamedTuple):
     def anchor(self, epoch: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
         h = stream_key(self.seed, epoch, ANCHOR_PURPOSE)
         return h % torch.clamp(count.long() - 1, min=1)
+
+
+class SGDSampler(NamedTuple):
+    """The gradient batches of one random-sampling SGD epoch of ``m`` steps,
+    from the device epoch tensor: ``batches(epoch, t, count)`` are the
+    ``(count, b)`` batches of steps t, ..., t + count - 1 (``t`` a Python
+    int or a device tensor), step t's drawn from the stream ``(seed, epoch
+    * m + t)``, JAX's ``fold_in(PRNGKey(seed), epoch * m + t)``. The
+    protocol of :class:`EpochSampler`'s ``batches``, which ``sampler=`` of
+    :func:`lbfgs_ffnn_torch.solvers.sgd.sgd` takes."""
+
+    seed: int | torch.Tensor
+    n: int
+    b: int
+    m: int
+    impl: str = "topk"
+
+    def batches(self, epoch: torch.Tensor, t, count: int) -> torch.Tensor:
+        ts = t + torch.arange(count, device=epoch.device)
+        return sample_without_replacement(stream_key(self.seed, epoch.long() * self.m + ts),
+                                          self.n, self.b, self.impl)

@@ -43,18 +43,22 @@ def history_from_result(result: SolveResult, total_time_s: float) -> History:
     return History(loss=loss, gnorm=gnorm, time_ms=time_ms)
 
 
-def write_history_csv(path, history: History, log_interval: int = 1) -> None:
+def write_history_csv(path, history: History, log_interval: int = 1,
+                      extra: dict | None = None) -> None:
     """Write ``Iteration,Loss,GradNorm,TimeMs`` rows strided by
     ``log_interval``; nothing when ``log_interval <= 0`` or the history is
-    empty. (The JAX writer's ``extra`` columns, the stochastic solvers'
-    accuracies, come with those solvers.)"""
+    empty. ``extra`` maps further column names (``TrainAcc``, ``TestAcc``:
+    the reference's plot tooling shows accuracy panels where they exist) to
+    per-iteration arrays, written after TimeMs in its order."""
     if log_interval <= 0 or history.n == 0:
         return
+    cols = {k: np.asarray(v, dtype=np.float64) for k, v in (extra or {}).items()}
     with open(path, "w") as f:
-        f.write("Iteration,Loss,GradNorm,TimeMs\n")
+        f.write("Iteration,Loss,GradNorm,TimeMs" + "".join(f",{k}" for k in cols) + "\n")
         for i in range(0, history.n, log_interval):
             f.write(f"{i},{history.loss[i]:.17g},{history.gnorm[i]:.17g},"
-                    f"{history.time_ms[i]:.17g}\n")
+                    f"{history.time_ms[i]:.17g}"
+                    + "".join(f",{c[i]:.17g}" for c in cols.values()) + "\n")
 
 
 def read_history_csv(path) -> History:

@@ -1,5 +1,6 @@
 from lbfgs_ffnn_torch.solvers.gd import GDOptions, gradient_descent
 from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, lbfgs
+from lbfgs_ffnn_torch.solvers.sgd import SGDOptions, sgd
 from lbfgs_ffnn_torch.solvers.slbfgs import SLBFGSOptions, slbfgs, slbfgs_chunked
 
 __all__ = [
@@ -7,6 +8,8 @@ __all__ = [
     "gradient_descent",
     "LBFGSOptions",
     "lbfgs",
+    "SGDOptions",
+    "sgd",
     "SLBFGSOptions",
     "slbfgs",
     "slbfgs_chunked",

@@ -1,6 +1,7 @@
 """Shared solver utilities: history recording, the result record, the
-full-f32 guard, the measured-chunk driver protocol and the resident driver
-the L-BFGS and S-LBFGS solves share. Counterpart of
+full-f32 guard, the Wolfe search with its evaluation counters, the
+measured-chunk driver protocol and the resident driver every solver of the
+port shares. Counterpart of
 :mod:`lbfgs_ffnn_tpu.solvers.common`; its jit cache has no counterpart
 (eager PyTorch compiles nothing), the cache of captured steps
 (:func:`cached_resident`) stands in its place."""
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from lbfgs_ffnn_torch.ops.control import Graph, capture, host_reads
+from lbfgs_ffnn_torch.ops.linesearch import wolfe_line_search_device
 from lbfgs_ffnn_torch.types import SolveResult
 
 
@@ -39,9 +41,28 @@ def record_at(flag, loss_h, gnorm_h, k, loss, gnorm) -> None:
     the device bool ``flag`` holds: no value reaches the host. ``k`` is
     clamped into the history, so a masked (eager) write at ``k ==
     max_iters`` stays in bounds and changes nothing."""
-    idx = torch.clamp(k, max=loss_h.shape[0] - 1).long().view(1)
-    for h, v in ((loss_h, loss), (gnorm_h, gnorm)):
-        h.index_copy_(0, idx, torch.where(flag, v, h.index_select(0, idx).view(())).view(1))
+    record_row(flag, loss_h, k, loss)
+    record_row(flag, gnorm_h, k, gnorm)
+
+
+def record_row(flag, h, k, value) -> None:
+    """``h[k] = value`` in place where the device bool ``flag`` holds, ``k``
+    a device index clamped into ``h``; ``value`` has the shape of a row of
+    ``h`` (a scalar for a history, a vector for a metric history)."""
+    idx = torch.clamp(k, max=h.shape[0] - 1).long().view(1)
+    row = torch.as_tensor(value, dtype=h.dtype, device=h.device).reshape((1,) + h.shape[1:])
+    h.index_copy_(0, idx, torch.where(flag, row, h.index_select(0, idx)))
+
+
+def init_metric_history(metric_fn, epochs: int, w0, x, y, *margs) -> torch.Tensor:
+    """Per-epoch metric storage, NaN-filled: ``(epochs,)`` without a metric,
+    else ``(epochs,) + shape`` with ``shape`` that of ``metric_fn(w, x, y,
+    *margs)`` (a scalar, e.g. TrainAcc, or a vector, e.g. [TrainAcc,
+    TestAcc]). JAX reads the shape abstractly; here the metric is evaluated
+    once, at ``w0``, before any capture. ``margs`` are operands (e.g. the
+    held-out split), never constants of a captured graph."""
+    shape = () if metric_fn is None else tuple(metric_fn(w0, x, y, *margs).shape)
+    return torch.full((epochs,) + shape, float("nan"), dtype=w0.dtype, device=w0.device)
 
 
 def finalize(x, k, converged, loss, gnorm, loss_h, gnorm_h, metric_h=None,
@@ -76,6 +97,40 @@ def full_f32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def lean_gate(problem, ls_value_only) -> bool:
+    """Whether the Wolfe search takes loss-only trials (plus one
+    value-and-gradient at the accepted point): ``ls_value_only`` when set,
+    else wherever the problem carries a line restriction in either form."""
+    if ls_value_only is not None:
+        return ls_value_only
+    return problem.line_fun is not None or problem.line_prefix is not None
+
+
+def wolfe_with_counters(problem, opts, x, p, f0, dg0, aux, lean: bool, *, value_along=None,
+                        vag_along=None, live=None):
+    """The device-form Wolfe search (its trials one device loop) with the
+    evaluation counters it adds, ``(ls, nf_add, ng_add)`` as int32 device
+    scalars: a lean search counts its trials plus one value-and-gradient at
+    the accepted point (or the caller's re-evaluation where none was
+    accepted); a fused one counts every trial as a value-and-gradient, plus
+    one more when it ran out of trials unevaluated. ``opts`` gives ``c1``,
+    ``c2``, ``ls_shrink`` and ``ls_max_iters``; lean trials go through
+    ``value_along`` (``alpha -> f(x + alpha p)``) when given, else a jvp of
+    ``problem.fun``; ``live`` is the enclosing guard's flag."""
+    ls = wolfe_line_search_device(
+        problem.value_and_grad, x, p, f0, dg0, aux,
+        c1=opts.c1, c2=opts.c2, shrink=opts.ls_shrink, max_iters=opts.ls_max_iters,
+        value=problem.fun if lean else None,
+        value_along=value_along if lean else None,
+        vag_along=vag_along if lean else None,
+        live=live,
+    )
+    if lean:
+        return ls, ls.n_trials + 1, torch.ones_like(ls.n_trials)
+    nf = ls.n_trials + (~ls.evaluated).to(torch.int32)
+    return ls, nf, nf
 
 
 def drive_chunks(run_chunk, state, args, total, counter, done, callback=None, pipeline=True):

@@ -58,14 +58,14 @@ from lbfgs_ffnn_torch.ops.control import assign, guard
 from lbfgs_ffnn_torch.ops.cuda_two_loop import two_loop_cuda
 from lbfgs_ffnn_torch.ops.linesearch import (
     armijo_quad_line_search, armijo_quad_line_search_device, wolfe_line_search,
-    wolfe_line_search_device,
 )
 from lbfgs_ffnn_torch.ops.two_loop import (
     RingState, empty_history_state, ring_push, ring_reset, two_loop, two_loop_compact,
 )
 from lbfgs_ffnn_torch.solvers.common import (  # clear_graph_cache: re-exported
     Resident, cached_resident, clear_graph_cache, data_key, drive_resident,  # noqa: F401
-    finalize, full_f32, init_history, record, record_at, tensors,
+    finalize, full_f32, init_history, lean_gate, record, record_at, tensors,
+    wolfe_with_counters,
 )
 from lbfgs_ffnn_torch.types import Problem, SolveResult, prepared_aux
 
@@ -157,10 +157,8 @@ def _lean(problem: Problem, opts: LBFGSOptions) -> bool:
     """Loss-only trials (Wolfe: loss and slope by one jvp) plus one
     value-and-gradient at the chosen point: ``ls_value_only`` when set,
     else on for armijo and wherever the problem has a line restriction."""
-    if opts.ls_value_only is not None:
-        return opts.ls_value_only
-    return (opts.line_search == "armijo" or problem.line_fun is not None
-            or problem.line_prefix is not None)
+    return lean_gate(problem, opts.ls_value_only) or (
+        opts.ls_value_only is None and opts.line_search == "armijo")
 
 
 def _use_prefix(problem: Problem, opts: LBFGSOptions) -> bool:
@@ -441,24 +439,13 @@ def _make_resident_body(problem: Problem, opts: LBFGSOptions):
                 assign(first, dst, new)
         later = not_done & (s.k > 0)
         with guard(later):
-            ls = wolfe_line_search_device(
-                problem.value_and_grad, s.x, p, s.f, torch.dot(s.g, p), aux,
-                c1=opts.c1, c2=opts.c2, shrink=opts.ls_shrink, max_iters=opts.ls_max_iters,
-                alpha0=1.0,
-                value=problem.fun if lean else None,
-                value_along=va if lean else None,
-                vag_along=vag if lean else None,
-                live=later,
-            )
+            ls, nf, ng = wolfe_with_counters(problem, opts, s.x, p, s.f, torch.dot(s.g, p), aux,
+                                             lean, value_along=va, vag_along=vag, live=later)
             reeval = later & ~ls.evaluated
             with guard(reeval):  # re-evaluate at the search's last alpha
                 f, g = problem.value_and_grad(s.x + ls.alpha * p, aux)
                 assign(reeval, ls.f_new, f)
                 assign(reeval, ls.g_new, g)
-            if lean:  # jvp trials + one value-and-gradient (accepted or re-evaluated)
-                nf, ng = ls.n_trials + 1, torch.ones_like(ls.n_trials)
-            else:
-                nf = ng = ls.n_trials + (~ls.evaluated).to(torch.int32)
             for dst, new in zip(out, (ls.alpha, ls.f_new, ls.g_new, nf, ng)):
                 assign(later, dst, new)
         return _Step(p, s.hist, B, alpha, f_new, g_new, nf_add, ng_add, 0)

@@ -40,9 +40,14 @@ replay draws its own batches; each graph draws its steps' batches at once,
 never a whole epoch's ``(m_inner, N)`` keys. Tests pass JAX's indices in
 through a sampler of their own.
 
-Not ported yet (each raises ``NotImplementedError``): ``metric_fn`` and
-``metric_args`` (the per-epoch accuracy, ROADMAP queue 1 item 5),
-``mesh=`` (item 11) and ``store=`` (item 10). JAX's ``scan_unroll`` and
+``metric_fn(w, x, y, *metric_args)`` is recorded per epoch into
+``metric_history`` by the finish graph, at the new anchor, as JAX's is; the
+``metric_args`` (e.g. the held-out split) are operands the graph reads, not
+constants captured into it. The sampler's seed is held in the device state
+and set by each solve from ``opts.seed``, so one capture serves every seed.
+
+Not ported yet (each raises ``NotImplementedError``): ``mesh=`` (ROADMAP
+queue 1 item 11) and ``store=`` (item 10). JAX's ``scan_unroll`` and
 ``sampling`` options have no counterpart here.
 """
 
@@ -56,12 +61,12 @@ import torch
 from lbfgs_ffnn_torch.objectives.mlp import take_batch
 from lbfgs_ffnn_torch.ops.control import assign, guard
 from lbfgs_ffnn_torch.ops.cuda_two_loop import two_loop_cuda
-from lbfgs_ffnn_torch.ops.sampling import EpochSampler
+from lbfgs_ffnn_torch.ops.sampling import EpochSampler, device_seed
 from lbfgs_ffnn_torch.ops.two_loop import RingState, empty_history_state, ring_push, two_loop
 from lbfgs_ffnn_torch.ops.two_loop import two_loop_compact
 from lbfgs_ffnn_torch.solvers.common import (
     Resident, cached_resident, data_key, drive_resident, finalize, full_f32, init_history,
-    record_at,
+    init_metric_history, record_at, record_row,
 )
 from lbfgs_ffnn_torch.types import BatchProblem, SolveResult
 
@@ -105,9 +110,6 @@ def _check_options(opts: SLBFGSOptions) -> None:
     if opts.pair_dtype not in _PAIR_DTYPES:
         raise NotImplementedError(f"SLBFGSOptions(pair_dtype={opts.pair_dtype!r}) is not "
                                   "ported yet: the narrow ring is bfloat16")
-    if opts.metric_fn is not None:
-        raise NotImplementedError("SLBFGSOptions(metric_fn=...) is not ported yet "
-                                  "(record_accuracy, ROADMAP queue 1 item 5)")
     if opts.L < 1 or opts.history < 1 or opts.epochs < 1:
         raise ValueError(f"need L, history and epochs >= 1, got {opts.L}, {opts.history}, "
                          f"{opts.epochs}")
@@ -156,10 +158,11 @@ def _vr_pick(r: _VecRing, li: torch.Tensor) -> torch.Tensor:
 
 
 class _State(NamedTuple):
-    """JAX's solver state (``lbfgs_ffnn_tpu.solvers.slbfgs._State`` without
-    ``metric_h``), every field a device tensor: ``epoch`` int32, ``has_u``
-    and ``stop`` bool, the rest in the solver dtype. The resident driver
-    keeps one in static buffers that each epoch updates in place."""
+    """JAX's solver state (``lbfgs_ffnn_tpu.solvers.slbfgs._State``), every
+    field a device tensor: ``epoch`` int32, ``has_u`` and ``stop`` bool, the
+    rest in the solver dtype; and the sampler's seed (int64), which each
+    solve sets from its options. The resident driver keeps one in static
+    buffers that each epoch updates in place."""
 
     epoch: torch.Tensor
     w: torch.Tensor        # anchor w~
@@ -170,9 +173,11 @@ class _State(NamedTuple):
     gnorm: torch.Tensor    # ||mu|| of the most recent epoch
     loss_h: torch.Tensor
     gnorm_h: torch.Tensor
+    metric_h: torch.Tensor
+    seed: Any = None
 
 
-def _init_state(opts: SLBFGSOptions, w0: torch.Tensor) -> _State:
+def _init_state(opts: SLBFGSOptions, w0: torch.Tensor, x, y, margs=()) -> _State:
     dev = w0.device
     loss_h, gnorm_h = init_history(opts.epochs, w0.dtype, dev)
     return _State(
@@ -186,6 +191,8 @@ def _init_state(opts: SLBFGSOptions, w0: torch.Tensor) -> _State:
         gnorm=torch.full((), float("inf"), dtype=w0.dtype, device=dev),
         loss_h=loss_h,
         gnorm_h=gnorm_h,
+        metric_h=init_metric_history(opts.metric_fn, opts.epochs, w0, x, y, *margs),
+        seed=device_seed(opts.seed, dev),
     )
 
 
@@ -223,7 +230,7 @@ class _Scratch(NamedTuple):
 
 
 def _make_bodies(problem: BatchProblem, opts: SLBFGSOptions, x: torch.Tensor,
-                 y: torch.Tensor, sampler, like: torch.Tensor) -> tuple[list, list]:
+                 y: torch.Tensor, margs: tuple, sampler, like: torch.Tensor) -> tuple[list, list]:
     """``(bodies, schedule)``: one epoch of JAX's ``body`` as three kinds of
     ``body(s, not_done)`` on the device state ``s``, in place, run in the
     order ``schedule``: the start (the anchor's full gradient, the
@@ -232,7 +239,8 @@ def _make_bodies(problem: BatchProblem, opts: SLBFGSOptions, x: torch.Tensor,
     ``nb - 1`` times) and the finish (the tail's steps, the anchor reset,
     the record). The start is guarded by ``not_done``, the rest by the
     epoch's ``run`` flag. Nothing in them reads a value back to the host.
-    Each holds at most L + 1 steps, whatever ``m_inner``."""
+    Each holds at most L + 1 steps, whatever ``m_inner``. ``sampler`` None
+    draws from :class:`EpochSampler` on the state's seed."""
     N = x.shape[0]
     b, m_inner, b_h = _sizes(opts, N)
     nb, p_end, tail = _plan(m_inner, opts.L)
@@ -245,10 +253,13 @@ def _make_bodies(problem: BatchProblem, opts: SLBFGSOptions, x: torch.Tensor,
                   buf=torch.zeros((opts.L + 1, n), dtype=like.dtype, device=dev),
                   head=i64(), count=i64(), t0=i64())
 
+    def draws(s: _State):
+        return sampler if sampler is not None else EpochSampler(s.seed, N, b, b_h, opts.sampler)
+
     def batches(s: _State, t, count: int) -> torch.Tensor:
         # a graph's batches in one draw (its steps' keys together: at most
         # (L + 1) x N of them)
-        idx = sampler.batches(s.epoch, t, count)
+        idx = draws(s).batches(s.epoch, t, count)
         if idx.shape != (count, b):
             raise ValueError(f"the sampler's batches have shape {tuple(idx.shape)}, not "
                              f"({count}, {b})")
@@ -284,7 +295,7 @@ def _make_bodies(problem: BatchProblem, opts: SLBFGSOptions, x: torch.Tensor,
         # first average exists, and `run` where the epoch does not run.
         u = _vr_mean(wr)
         s_vec = u - s.u_prev
-        yv = hvp(u, s_vec, sampler.hvp_batch(s.epoch, t))
+        yv = hvp(u, s_vec, draws(s).hvp_batch(s.epoch, t))
         ys = torch.dot(yv, s_vec)
         if opts.curvature_rel_eps > 0.0:
             gate = opts.curvature_rel_eps * torch.linalg.norm(yv) * torch.linalg.norm(s_vec)
@@ -343,12 +354,14 @@ def _make_bodies(problem: BatchProblem, opts: SLBFGSOptions, x: torch.Tensor,
                 wt, wr = step(s, idx, wt, wr)
             # Anchor reset to a random recent iterate, the newest excluded
             # (s_lbfgs.hpp:265-270).
-            j = sampler.anchor(s.epoch, wr.count)
+            j = draws(s).anchor(s.epoch, wr.count)
             w_new = torch.where(wr.count >= 2, _vr_pick(wr, j), wt)
             if opts.record_full:
                 full_loss, full_g = problem.value_and_grad(w_new, x, y)
                 record_at(sc.run, s.loss_h, s.gnorm_h, s.epoch, full_loss,
                           torch.linalg.norm(full_g))
+            if opts.metric_fn is not None:
+                record_row(sc.run, s.metric_h, s.epoch, opts.metric_fn(w_new, x, y, *margs))
             assign(sc.run, s.w, w_new)
             assign(sc.run, s.epoch, s.epoch + 1)
             assign(sc.run, not_done, _not_done(s, opts))
@@ -365,22 +378,22 @@ def _counters(s: _State) -> tuple:
     return (s.epoch,)
 
 
-def _resident(problem, opts, w0, x, y, sampler, capture: bool) -> Resident:
-    bodies, schedule = _make_bodies(problem, opts, x, y, sampler, w0)
-
+def _resident(problem, opts, w0, x, y, margs, sampler, capture: bool) -> Resident:
     def make():
-        return Resident(bodies, _init_state(opts, w0), lambda s: _not_done(s, opts), capture,
-                        schedule)
+        bodies, schedule = _make_bodies(problem, opts, x, y, margs, sampler, w0)
+        return Resident(bodies, _init_state(opts, w0, x, y, margs), lambda s: _not_done(s, opts),
+                        capture, schedule)
 
     if not capture:
         return make()
-    return cached_resident(("slbfgs", problem, opts, tuple(w0.shape), w0.dtype, w0.device,
-                            data_key((x, y)), sampler), make)
+    # the seed is not in the key: the graphs read it from the state
+    return cached_resident(("slbfgs", problem, opts._replace(seed=0), tuple(w0.shape), w0.dtype,
+                            w0.device, data_key((x, y, margs)), sampler), make)
 
 
 def _solve(problem: BatchProblem, w0: Optional[torch.Tensor], x, y, opts: SLBFGSOptions, *,
            chunk: int, capture: bool, sampler=None, callback=None, resume_state=None,
-           epochs: Optional[int] = None):
+           epochs: Optional[int] = None, metric_args: tuple = ()):
     """The resident driver: ``chunk`` epochs per host read, captured
     (``capture``, CUDA only; chunk c+1 is enqueued before the host reads
     chunk c) or run eagerly with masked writes (one chunk at a time: on
@@ -393,12 +406,12 @@ def _solve(problem: BatchProblem, w0: Optional[torch.Tensor], x, y, opts: SLBFGS
     like = w0 if w0 is not None else resume_state.w
     if capture and not like.is_cuda:
         raise ValueError(f"a captured solve needs CUDA tensors, got {like.device}")
-    if sampler is None:
-        b, _, b_h = _sizes(opts, x.shape[0])
-        sampler = EpochSampler(opts.seed, x.shape[0], b, b_h, opts.sampler)
+    margs = tuple(metric_args)
     with full_f32(), torch.no_grad():
-        r = _resident(problem, opts, like, x, y, sampler, capture)
-        r.load(resume_state if resume_state is not None else _init_state(opts, w0))
+        r = _resident(problem, opts, like, x, y, margs, sampler, capture)
+        state = (resume_state if resume_state is not None
+                 else _init_state(opts, w0, x, y, margs))
+        r.load(state._replace(seed=device_seed(opts.seed, like.device)))  # the seed is the run's
         known = (0, True) if resume_state is None else None
         # a warm-up that stops before opts.epochs must not run a chunk ahead
         (k, _), time_ms = drive_resident(r, chunk, opts.epochs if epochs is None else epochs,
@@ -407,20 +420,18 @@ def _solve(problem: BatchProblem, w0: Optional[torch.Tensor], x, y, opts: SLBFGS
         s = r.state
         res = finalize(s.w.clone(), k, s.stop.clone(), s.loss_h[max(k - 1, 0)].clone(),
                        s.gnorm.clone(), s.loss_h.clone(), s.gnorm_h.clone(),
+                       s.metric_h.clone() if opts.metric_fn is not None else None,
                        n_host_syncs=r.syncs)
     return res, time_ms
 
 
-def _refuse(mesh, store=None, metric_args=()) -> None:
+def _refuse(mesh, store=None) -> None:
     if mesh is not None:
         raise NotImplementedError("S-LBFGS with mesh= is not ported yet (ROADMAP queue 1 "
                                   "item 11)")
     if store is not None:
         raise NotImplementedError("S-LBFGS with store= (out-of-core) is not ported yet "
                                   "(ROADMAP queue 1 item 10)")
-    if metric_args:
-        raise NotImplementedError("S-LBFGS metric_args are not ported yet (record_accuracy, "
-                                  "ROADMAP queue 1 item 5)")
 
 
 def slbfgs(
@@ -442,18 +453,18 @@ def slbfgs(
     ``sampler`` replaces the default index draws (see
     :class:`~lbfgs_ffnn_torch.ops.sampling.EpochSampler` for its protocol)."""
     opts = opts or SLBFGSOptions()
-    _refuse(mesh, store, metric_args)
+    _refuse(mesh, store)
     return _solve(problem, w0, x, y, opts, chunk=RESIDENT_CHUNK, capture=w0.is_cuda,
-                  sampler=sampler)[0]
+                  sampler=sampler, metric_args=metric_args)[0]
 
 
 def _slbfgs_resident_eager(problem: BatchProblem, w0: torch.Tensor, x, y,
                            opts: SLBFGSOptions | None = None, chunk: int = RESIDENT_CHUNK,
-                           sampler=None) -> SolveResult:
+                           sampler=None, metric_args: tuple = ()) -> SolveResult:
     """The epoch body run eagerly (masked writes, nothing captured) on any
     device: what the captured solve is held against."""
     return _solve(problem, w0, x, y, opts or SLBFGSOptions(), chunk=chunk, capture=False,
-                  sampler=sampler)[0]
+                  sampler=sampler, metric_args=metric_args)[0]
 
 
 def slbfgs_chunked(
@@ -485,8 +496,24 @@ def slbfgs_chunked(
     then be None.
     """
     opts = opts or SLBFGSOptions()
-    _refuse(mesh, metric_args=metric_args)
+    _refuse(mesh)
     like = w0 if w0 is not None else (resume_state.w if resume_state is not None else None)
     return _solve(problem, w0, x, y, opts, chunk=chunk,
                   capture=like is not None and like.is_cuda, sampler=sampler,
-                  callback=callback, resume_state=resume_state)
+                  callback=callback, resume_state=resume_state, metric_args=metric_args)
+
+
+def slbfgs_warm_up(problem: BatchProblem, w0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                   opts: SLBFGSOptions | None = None, epochs: int = 2,
+                   metric_args: tuple = (), sampler=None) -> SolveResult:
+    """``epochs`` epochs, from ``w0``, of the solve ``slbfgs`` runs with
+    these arguments: on CUDA tensors its epoch captured here and cached (a
+    later ``slbfgs`` with the same problem, options but the seed, shapes and
+    data replays it), read by the host once at the end; on CPU tensors the
+    eager epoch. The warm-up before a timed solve."""
+    opts = opts or SLBFGSOptions()
+    if w0.is_cuda:
+        return _solve(problem, w0, x, y, opts, chunk=max(epochs, 1), capture=True,
+                      sampler=sampler, epochs=epochs, metric_args=metric_args)[0]
+    return slbfgs(problem, w0, x, y, opts._replace(epochs=epochs), metric_args=metric_args,
+                  sampler=sampler)

@@ -102,6 +102,7 @@ def test_port_imports_without_jax():
         "import lbfgs_ffnn_torch.objectives.pinn, lbfgs_ffnn_torch.experiments.run_burgers\n"
         "import lbfgs_ffnn_torch.experiments.run_oscillator\n"
         "import lbfgs_ffnn_torch.experiments.burgers_validate\n"
+        "import lbfgs_ffnn_torch.solvers.sgd, lbfgs_ffnn_torch.runtime.streamer\n"
         "assert not any(k.startswith(('jax', 'lbfgs_ffnn_tpu')) and sys.modules[k] is not None\n"
         "               for k in sys.modules)\n"
     )

@@ -1,6 +1,6 @@
 """The deep-net path of the port against the JAX package: the f64 L-BFGS
 trajectory on a 4-layer net with f32-width and bf16 pairs, gradient descent
-(momentum and fixed step), and the Fashion-MNIST loader.
+(momentum, fixed step and the Wolfe search), and the Fashion-MNIST loader.
 
 Tolerances: both packages compute in f64 and store bf16 pairs with the same
 rounding (f64 -> f32 -> bf16 in both, checked bit for bit in
@@ -19,7 +19,7 @@ from lbfgs_ffnn_tpu.solvers.gd import GDOptions as JGDOptions, gradient_descent 
 from lbfgs_ffnn_tpu.solvers.lbfgs import LBFGSOptions as JOptions, lbfgs as j_lbfgs
 from lbfgs_ffnn_torch.data import datasets as tds
 from lbfgs_ffnn_torch.objectives import mlp as tmlp
-from lbfgs_ffnn_torch.solvers.gd import GDOptions, gradient_descent
+from lbfgs_ffnn_torch.solvers.gd import RESIDENT_CHUNK, GDOptions, gradient_descent
 from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, lbfgs
 
 DIMS, ACTS = [20, 16, 12, 8, 4], ["relu", "relu", "relu", "linear"]
@@ -81,7 +81,8 @@ def test_gd_trajectory_matches_jax(momentum, step):
                           aux=(torch.tensor(x), torch.tensor(y)), opts=GDOptions(**kw))
     _assert_same(rt, rj)
     assert bool(rt.converged) == bool(rj.converged)
-    assert rt.n_host_syncs == ITERS  # one stop test per iteration
+    # the resident driver: one read per chunk of iterations
+    assert rt.n_host_syncs <= -(-ITERS // RESIDENT_CHUNK) + 2
 
 
 def test_gd_stops_on_tol():
@@ -97,15 +98,20 @@ def test_gd_stops_on_tol():
     r = solve(tol)
     assert bool(r.converged) and 0 < r.n_iters <= 10
     assert torch.all(torch.isnan(r.loss_history[r.n_iters:]))
-    assert r.n_host_syncs == r.n_iters + 1 and r.n_fevals == r.n_gevals == r.n_iters + 1
+    assert r.n_host_syncs <= -(-r.n_iters // RESIDENT_CHUNK) + 2
+    assert r.n_fevals == r.n_gevals == r.n_iters + 1
 
 
 def test_gd_wolfe_not_ported():
-    """momentum 0 with the line search (the JAX default) needs Wolfe."""
+    """momentum 0 with the line search (the JAX default), once refused, is
+    the Wolfe branch: JAX's trajectory on the deep net."""
     js, ts, w0, x, y = _problem()
-    with pytest.raises(NotImplementedError):
-        gradient_descent(tmlp.mlp_problem(ts), torch.tensor(w0), aux=(torch.tensor(x),
-                                                                       torch.tensor(y)))
+    rj = j_gd(jmlp.mlp_problem(js), jnp.asarray(w0), aux=(jnp.asarray(x), jnp.asarray(y)),
+              opts=JGDOptions(max_iters=ITERS, tol=1e-12))
+    rt = gradient_descent(tmlp.mlp_problem(ts), torch.tensor(w0),
+                          aux=(torch.tensor(x), torch.tensor(y)), opts=GDOptions(max_iters=ITERS,
+                                                                                 tol=1e-12))
+    _assert_same(rt, rj)
 
 
 @pytest.mark.parametrize("with_images", [False, True])

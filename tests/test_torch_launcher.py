@@ -2,11 +2,13 @@
 same data and weights (carried across with ``params_from_numpy``,
 ``reset_params=False``) through ``Launcher.train``, compared on the CSV's
 Loss and GradNorm columns (f64: rtol 1e-9; TimeMs is a wall time and is not
-compared), for GD, Armijo L-BFGS (the cuda style) and Wolfe L-BFGS (the cpu
-style). S-LBFGS draws its batches from the port's own stream, so its
-Launcher is held to the JAX Launcher's options and runs. The runner's
-``main(argv)`` runs at a tiny size on the CPU, from IDX label files written
-here."""
+compared), for GD (whole and in measured chunks), Armijo L-BFGS (the cuda
+style), Wolfe L-BFGS (the cpu style) and the cuda style's sequential SGD
+with its TrainAcc and TestAcc columns. S-LBFGS and the cpu style's random
+SGD draw their batches from the port's own stream, so their Launchers are
+held to the JAX Launcher's options and runs. The runner's ``main(argv)``
+runs its default rows at a tiny size on the CPU, from IDX label files
+written here."""
 
 import dataclasses
 
@@ -106,8 +108,8 @@ def test_launcher_runs_on_cuda_unless_told_otherwise():
 
 
 @pytest.mark.parametrize("solver,kw", [
-    ("sgd", {}), ("slbfgs", {"compute_dtype": "bfloat16"}),
-    ("gd", {"timed_chunks": 10}), ("lbfgs", {"compute_dtype": "bfloat16"}),
+    ("sgd", {"fun_input_dtype": "uint8"}), ("slbfgs", {"compute_dtype": "bfloat16"}),
+    ("gd", {"compute_dtype": "bfloat16"}), ("lbfgs", {"compute_dtype": "bfloat16"}),
     ("lbfgs", {"prefix_dtype": "bfloat16"}), ("lbfgs", {"grad_input_dtype": "bfloat16"}),
     ("lbfgs", {"line_input_dtype": "uint8"}), ("gd", {"fun_input_dtype": "uint8"}),
     ("lbfgs", {"ls_alpha_init": "warm"}), ("lbfgs", {"pair_dtype": "float16", "timed_chunks": 5}),
@@ -206,6 +208,10 @@ def test_history_csv_matches_jax_writer(tmp_path, log_interval):
     np.testing.assert_array_equal(back.loss, loss[::log_interval])
     write_history_csv(tmp_path / "none.csv", History(loss, gnorm, tms), 0)
     assert not (tmp_path / "none.csv").exists()
+    extra = {"TrainAcc": rng.random(7) * 100, "TestAcc": rng.random(7) * 100}
+    write_history_csv(tmp_path / "te.csv", History(loss, gnorm, tms), log_interval, extra)
+    j_write(str(tmp_path / "je.csv"), JHistory(loss, gnorm, tms), log_interval, extra)
+    assert (tmp_path / "te.csv").read_text() == (tmp_path / "je.csv").read_text()
 
 
 @pytest.fixture
@@ -217,16 +223,16 @@ def fashion_root(tmp_path):
 
 
 def test_runner_main_deep_on_cpu(fashion_root, capsys):
-    """The cuda-style run list on the deep net at a tiny size: GD, L-BFGS m=10
-    and m=100, and both bf16-ring variants run; SGD is named and skipped."""
+    """The cuda-style run list on the deep net at a tiny size: GD, SGD,
+    L-BFGS m=10 and m=100, and both bf16-ring variants run."""
     out = fashion_root / "out"
     done = run_mnist.main(["--dataset", "fashion", "--deep", "--iters", "4", "--bf16-ring",
                            "--data-root", str(fashion_root), "--out-dir", str(out),
                            "--device", "cpu"])
     names = [cfg.name for _, cfg, _ in done]
-    assert names == ["FASHION_GD", "FASHION_LBFGS_m10", "FASHION_LBFGS_m100",
+    assert names == ["FASHION_GD", "FASHION_SGD", "FASHION_LBFGS_m10", "FASHION_LBFGS_m100",
                      "FASHION_LBFGS_m10_bf16ring", "FASHION_LBFGS_m100_bf16ring"]
-    assert "FASHION_SGD (SGD, ROADMAP queue 1 item 7)" in capsys.readouterr().out
+    assert "not run" not in capsys.readouterr().out
     for solver, cfg, rep in done:
         assert rep.result.n_iters == 4 and bool(torch.isfinite(rep.result.final_loss))
         assert (out / f"{cfg.name}_history.csv").read_text().startswith(
@@ -242,14 +248,140 @@ def test_runner_filters_and_styles(fashion_root, capsys):
     assert [(s, c.name, c.two_loop_impl) for s, c, _ in done] == [
         ("lbfgs", "FASHION_LBFGS_m10", "plain"), ("lbfgs", "FASHION_LBFGS_m100", "plain")]
     done = run_mnist.main(base + ["--style", "cpu", "--timed-chunks", "1"])
-    assert [c.name for _, c, _ in done] == ["FASHION_Unified_GD", "FASHION_SLBFGS",
-                                            "FASHION_LBFGS"]
-    assert "FASHION_SGD (SGD, ROADMAP queue 1 item 7)" in capsys.readouterr().out
-    sl = done[1][1]
+    assert [c.name for _, c, _ in done] == ["FASHION_Unified_GD", "FASHION_SGD",
+                                            "FASHION_SLBFGS", "FASHION_LBFGS"]
+    assert "not run" not in capsys.readouterr().out
+    sl = done[2][1]
     assert (sl.batch_size, sl.m_param, sl.L_param, sl.b_H_param, sl.learning_rate,
             sl.timed_chunks) == (256, 10, 10, 128, 0.02, 1)
-    assert done[1][2].result.n_iters == 2 and done[2][1].timed_chunks == 1  # Wolfe L-BFGS too
+    assert done[2][2].result.n_iters == 2 and done[3][1].timed_chunks == 1  # Wolfe L-BFGS too
+    assert all(c.timed_chunks == 1 for _, c, _ in done)  # GD and SGD too
     with pytest.raises(SystemExit):
         run_mnist.main(base + ["--only", "nothing-matches"])
     with pytest.raises(SystemExit):  # --data-root is required
         run_mnist.main(["--dataset", "fashion", "--device", "cpu"])
+
+
+def test_sgd_cuda_style_matches_jax_launcher(tmp_path, monkeypatch):
+    """The cuda style's SGD (sequential batches with a ragged tail, momentum,
+    the decay and the tol stop) with the accuracy columns: the CSV equals
+    the JAX Launcher's, TrainAcc and TestAcc included."""
+    monkeypatch.chdir(tmp_path)
+    jl, tl = _both("cuda")
+    kw = dict(max_iters=9, tolerance=1e-3, learning_rate=0.05, momentum=0.9, batch_size=32,
+              lr_decay=0.8, lr_decay_rate=4, log_interval=2, reset_params=False,
+              record_accuracy=True)
+    rj = jl.train("sgd", JConfig(name="J", **kw), verbose=False)
+    rt = tl.train("sgd", UnifiedConfig(name="T", **kw), verbose=False)
+    assert rt.result.n_iters == int(rj.result.n_iters)
+    tj = np.genfromtxt(rj.csv_path, delimiter=",", names=True)
+    tt = np.genfromtxt(rt.csv_path, delimiter=",", names=True)
+    assert tt.dtype.names == tj.dtype.names == ("Iteration", "Loss", "GradNorm", "TimeMs",
+                                                "TrainAcc", "TestAcc")
+    for col in ("Iteration", "Loss", "GradNorm", "TrainAcc", "TestAcc"):
+        np.testing.assert_allclose(tt[col], tj[col], rtol=1e-9, err_msg=col)
+    np.testing.assert_allclose(tl.weights.numpy(), np.asarray(jl.weights), rtol=1e-8, atol=1e-10)
+    assert rt.warmup_iters == 2
+    o_j, o_t = jl._sgd_opts(JConfig(**kw)), tl._sgd_opts(UnifiedConfig(**kw))
+    for field in o_t._fields:
+        if field != "metric_fn":
+            assert getattr(o_t, field) == getattr(o_j, field), field
+
+
+@pytest.mark.parametrize("timed_chunks", [0, 3])
+def test_sgd_cpu_style_runs_with_accuracy(tmp_path, timed_chunks):
+    """The cpu style's SGD (random batches, plain steps, no stop) maps its
+    options as the JAX Launcher does and writes TrainAcc alone without a
+    held-out split; chunked or not, the same solve."""
+    parts = _data()
+    tl = _build(Launcher("cpu", dtype=torch.float64, device="cpu", out_dir=tmp_path),
+                Dataset(parts[0], parts[1], parts[2][:0], parts[3][:0]))
+    jl, _ = _both("cpu")
+    kw = dict(max_iters=5, learning_rate=0.03, batch_size=32, log_interval=1,
+              record_accuracy=True, timed_chunks=timed_chunks)
+    o_j, o_t = jl._sgd_opts(JConfig(**kw)), tl._sgd_opts(UnifiedConfig(**kw))
+    for field in o_t._fields:
+        if field != "metric_fn":
+            assert getattr(o_t, field) == getattr(o_j, field), field
+    assert (o_t.sampling, o_t.momentum, o_t.tol) == ("random", 0.0, 0.0)
+    rep = tl.train("sgd", UnifiedConfig(name="S", **kw), verbose=False)
+    tab = np.genfromtxt(rep.csv_path, delimiter=",", names=True)
+    assert tab.dtype.names[-1] == "TrainAcc" and len(tab) == 5
+    assert np.all((tab["TrainAcc"] >= 0) & (tab["TrainAcc"] <= 100))
+    ref = tl.train("sgd", UnifiedConfig(name="R", **dict(kw, timed_chunks=3 - timed_chunks)),
+                   verbose=False)
+    assert torch.equal(ref.result.x, rep.result.x)
+
+
+def test_gd_timed_chunks_matches_jax_launcher(tmp_path, monkeypatch):
+    """GD in measured chunks (gd_chunked): JAX's history, a time per chunk."""
+    monkeypatch.chdir(tmp_path)
+    jl, tl = _both()
+    kw = dict(max_iters=11, tolerance=1e-12, learning_rate=0.02, momentum=0.9,
+              log_interval=1, reset_params=False, timed_chunks=4)
+    rj = jl.train("gd", JConfig(name="J", **kw), verbose=False)
+    rt = tl.train("gd", UnifiedConfig(name="T", **kw), verbose=False)
+    hj, ht = j_read(rj.csv_path), read_history_csv(rt.csv_path)
+    assert ht.n == hj.n == 11 and rt.warmup_iters == 0
+    np.testing.assert_allclose(ht.loss, hj.loss, rtol=1e-9)
+    np.testing.assert_allclose(ht.gnorm, hj.gnorm, rtol=1e-9)
+    assert len(np.unique(ht.time_ms)) == 3 and np.all(np.diff(ht.time_ms) >= 0)
+
+
+@pytest.mark.parametrize("style", ["cuda", "cpu"])
+@pytest.mark.parametrize("solver", ["gd", "lbfgs", "sgd", "slbfgs"])
+def test_warm_up_is_the_timed_solves_start(solver, style):
+    """Each solver's warm-up (the Launcher's one table lookup) runs
+    WARMUP_ITERS iterations (epochs) of the solve the Launcher then times,
+    from the same start: its losses, gradient norms and metric rows are
+    that solve's first ones."""
+    from lbfgs_ffnn_torch import launcher
+
+    _, tl = _both(style)
+    c = UnifiedConfig(name="T", max_iters=6, tolerance=1e-12, learning_rate=0.02,
+                      batch_size=32, m_param=5, record_accuracy=solver in ("sgd", "slbfgs"))
+    n = launcher.WARMUP_ITERS
+    warm = tl._warm_up(solver, c)
+    whole = tl._solve(solver, c, c.max_iters)
+    assert int(warm.n_iters) == n < int(whole.n_iters)
+    for field in ("loss_history", "gnorm_history", "metric_history"):
+        a, b = getattr(warm, field), getattr(whole, field)
+        assert (a is None) == (b is None) == (field == "metric_history"
+                                              and solver not in ("sgd", "slbfgs"))
+        if a is not None:
+            np.testing.assert_allclose(a[:n].numpy(), b[:n].numpy(), rtol=1e-10)
+
+
+@pytest.mark.parametrize("style", ["cuda", "cpu"])
+def test_runner_default_rows_with_seeds(fashion_root, style):
+    """The runner's four default rows in either style, --record-accuracy
+    and --seeds 2: the stochastic rows' CSVs carry TrainAcc and TestAcc,
+    multiseed_summary.json holds each row's two seeds and run_meta.json
+    each row; --timed-chunks -1 is JAX's rule."""
+    import json
+
+    out = fashion_root / f"out_{style}"
+    done = run_mnist.main(["--dataset", "fashion", "--style", style, "--iters", "3",
+                           "--train-size", "64", "--data-root", str(fashion_root),
+                           "--out-dir", str(out), "--device", "cpu", "--record-accuracy",
+                           "--seeds", "2", "--timed-chunks", "-1"])
+    solvers = [s for s, _, _ in done]
+    assert solvers == (["gd", "sgd", "lbfgs", "lbfgs"] if style == "cuda"
+                       else ["gd", "sgd", "slbfgs", "lbfgs"])
+    summary = json.loads((out / "multiseed_summary.json").read_text())
+    meta = json.loads((out / "run_meta.json").read_text())
+    assert [r["name"] for r in meta["runs"]] == [c.name for _, c, _ in done]
+    for solver, cfg, rep in done:
+        header = (out / f"{cfg.name}_history.csv").read_text().splitlines()[0]
+        stochastic = solver in ("sgd", "slbfgs")
+        assert header.endswith(",TrainAcc,TestAcc") == stochastic, header
+        row = summary[cfg.name]
+        assert row["seeds"] == [123, 124] and len(row["final_loss"]) == 2
+        assert row["ms_per_iter_min"] <= row["ms_per_iter_median"] <= row["ms_per_iter_max"]
+        assert cfg.timed_chunks == (3 if solver == "sgd" else 50)
+        assert cfg.seed == 123 and rep.result.n_iters >= 1
+    sgd_cfg = done[1][1]
+    assert (sgd_cfg.batch_size, sgd_cfg.learning_rate, sgd_cfg.log_interval) == (
+        (256, 0.01, 5) if style == "cuda" else (256, 0.03, 5))
+    if style == "cuda":
+        assert (sgd_cfg.lr_decay, sgd_cfg.lr_decay_rate, sgd_cfg.tolerance) == (0.8, 40, 1e-3)

@@ -395,14 +395,46 @@ def test_default_sampler_is_chunk_invariant():
     assert np.all(np.isfinite(lh)) and lh[-1] < float(_problems()[1].fun(_t(W0), _t(X), _t(Y)))
 
 
+def test_slbfgs_metric_history_matches_jax():
+    """metric_fn with a held-out split as metric_args: [train, test]
+    accuracy at each epoch's new anchor, JAX's to rtol 1e-12, through the
+    chunked driver; the solve itself is unchanged."""
+    from lbfgs_ffnn_tpu.objectives.mlp import mlp_apply as j_apply, mlp_spec as j_spec
+
+    rng = np.random.default_rng(11)
+    tx, ty = rng.normal(size=(20, DIMS[0])), np.eye(DIMS[-1])[rng.integers(0, DIMS[-1], 20)]
+
+    def j_metric(w, x, y, a, b):
+        def acc(u, v):
+            pred = jnp.argmax(j_apply(j_spec(DIMS, ACTS), w, u), axis=1)
+            return jnp.mean((pred == jnp.argmax(v, axis=1)).astype(w.dtype)) * 100.0
+        return jnp.stack([acc(x, y), acc(a, b)])
+
+    def t_metric(w, x, y, a, b):
+        def acc(u, v):
+            return (tmlp.mlp_apply(SPEC_T, w, u).argmax(1) == v.argmax(1)).to(w.dtype).mean() * 100
+        return torch.stack([acc(x, y), acc(a, b)])
+
+    kw = _opts()
+    jopts = JOptions(metric_fn=j_metric, **kw)
+    jres = j_slbfgs(_problems()[0], jnp.asarray(W0), jnp.asarray(X), jnp.asarray(Y), jopts,
+                    metric_args=(jnp.asarray(tx), jnp.asarray(ty)))
+    _, _, indices = _jax_run(tuple(sorted(kw.items())))
+    res, _ = tsl.slbfgs_chunked(_problems()[1], _t(W0), _t(X), _t(Y),
+                                tsl.SLBFGSOptions(metric_fn=t_metric, **kw), chunk=4,
+                                sampler=indices, metric_args=(_t(tx), _t(ty)))
+    assert res.metric_history.shape == (EPOCHS, 2)
+    np.testing.assert_allclose(res.metric_history.numpy(), np.asarray(jres.metric_history),
+                               rtol=1e-12)
+    _assert_matches(res, {}, jres, {})
+
+
 def test_slbfgs_refuses_what_is_not_ported():
     p, w, x, y = _problems()[1], _t(W0), _t(X), _t(Y)
     with pytest.raises(NotImplementedError):
         tsl.slbfgs(p, w, x, y, mesh=object())
     with pytest.raises(NotImplementedError):
         tsl.slbfgs(p, w, x, y, store=object())
-    with pytest.raises(NotImplementedError):
-        tsl.slbfgs(p, w, x, y, tsl.SLBFGSOptions(metric_fn=lambda *a: 0.0))
     with pytest.raises(NotImplementedError):
         tsl.slbfgs_chunked(p, w, x, y, mesh=object())
     with pytest.raises(TypeError):
