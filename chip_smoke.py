@@ -75,8 +75,10 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 loop's (first 5 losses to rtol 1e-3; its ms/iter and host
                 syncs printed beside)
  11. bench    - python -m lbfgs_ffnn_torch.experiments.bench in a process of
-                its own (the 1000-iteration headline, its supplementary rows
-                on stderr); its one stdout line must be the contract JSON
+                its own (the 1000-iteration headline chosen among its five
+                rows, its supplementary rows on stderr); its one stdout
+                line must be the contract JSON, and its stderr must name
+                one of the five rows on a "headline config:" line
  12. stochastic - S-LBFGS at the bench row's configuration (the first 5,000
                 samples, b=256, b_H=128, M=10, L=10, lam 1e-4, step 0.02)
                 on the 784-128-10 net: the captured solve (each epoch
@@ -129,8 +131,22 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 sgd_streaming from the port's BatchStreamer (pinned), 2
                 epochs, its ms/epoch beside the resident SGD's; the phase's
                 time
- 15. result   - one JSON line with the three kernels' numbers (K1's launches
-                summed over its four paths, K2's over its three, each also
+ 15. traffic  - the bench's traffic variants at MNIST width (784-128-10,
+                N=60,000, m=10, Armijo): f32, bf16-traffic, u8-traffic,
+                u8-warm and u8-warm-nr, 100 iterations each on the
+                resident driver, captured: the first 10 iterations equal
+                the eager body's bitwise, the first loss f32's (bitwise;
+                rtol 1e-5 where fun_input_dtype is uint8), the refresh
+                fired 100 // 16 = 6 times (0 for u8-warm-nr and f32; the
+                state's device counter), K1 ran iterations + 1 capture,
+                and the same solve again captured nothing on the same
+                prepared copy; ms/iter, trials/iter, capture time and peak
+                memory per row; the first-layer GEMM pair's µs at N=60,000
+                for x in f32, uint8 and bf16 (upcast); the deep u8 traffic
+                stack, 20 iterations through K2 (21 launches); the
+                runner's --u8-input GD and SGD rows, 10 iterations/epochs
+ 16. result   - one JSON line with the three kernels' numbers (K1's launches
+                summed over its five paths, K2's over its four, each also
                 by path, with the PINN ring's numbers; K2's with its group
                 size, K3's with its prefetch distance and its time at each
                 distance), then the last line {"ok": true, "device": {...}}
@@ -193,6 +209,10 @@ FO_GD_ITERS = 50     # GD held captured = eager body bitwise, and timed
 FO_SGD_CHECK = 3     # SGD epochs held captured = eager body bitwise
 FO_SGD_EPOCHS = 10   # SGD epochs timed
 LAUNCHER_EPOCHS = 3  # the Launcher's S-LBFGS on all N_TRAIN samples
+TRAFFIC_ITERS = 100      # each traffic variant's captured solve
+TRAFFIC_CHECK = 10       # iterations held captured = eager body bitwise
+TRAFFIC_DEEP_ITERS = 20  # the deep u8 row through K2
+TRAFFIC_FO = 10          # the runner's u8input GD iterations and SGD epochs
 PINN_CHECK_ITERS = 10  # Burgers iterations held captured = eager body bitwise
 BURGERS_ITERS = 5000   # the Burgers runner's default depth
 KERNEL_REL_TOL = 1e-4  # max|kernel - plain| / max|plain|, f32 reduction order
@@ -1826,6 +1846,215 @@ def first_order_phase(torch, dev, profile: bool, mnist_root):
             "stream_ms": stream_ms}
 
 
+def _upcast_gemm_pair_us(torch, dev, x, reps=(5, 25)):
+    """µs per first-layer GEMM pair at the MNIST main path's shape (the
+    direction's B = x @ W1_p and the accept point's dW1 = x^T dz1, (N, 784)
+    by 784 x 128), f32 with TF32 off, for x in f32, uint8 and bf16 (each
+    narrow x upcast to f32 first, the uint8 products rescaled by 1/255, as
+    the objective computes them): the slope between two counts of pairs in
+    a row (CUDA events), which cancels the fixed costs."""
+    from lbfgs_ffnn_torch.objectives.mlp import quantize_pixels
+    from lbfgs_ffnn_torch.solvers.common import full_f32
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    W = torch.randn((x.shape[1], 128), generator=g, device=dev)
+    dz = torch.randn((x.shape[0], 128), generator=g, device=dev)
+    copies = {"f32": x, "u8": quantize_pixels(x), "bf16": x.to(torch.bfloat16)}
+
+    def pair(xc):
+        scale = 1.0 / 255.0 if xc.dtype == torch.uint8 else None
+        b = xc.to(torch.float32) @ W
+        gw = xc.to(torch.float32).t() @ dz
+        if scale is not None:
+            b, gw = b * scale, gw * scale
+        return b, gw
+
+    out = {}
+    with full_f32(), torch.no_grad():
+        for name, xc in copies.items():
+            pair(xc)
+            t = {}
+            for k in reps:
+                best = float("inf")
+                for _ in range(2):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(k):
+                        pair(xc)
+                    end.record()
+                    torch.cuda.synchronize()
+                    best = min(best, start.elapsed_time(end))
+                t[k] = best
+            out[name] = (t[reps[1]] - t[reps[0]]) / (reps[1] - reps[0]) * 1e3
+    return out
+
+
+def traffic_phase(torch, dev, profile: bool, mnist_root):
+    """The bench's traffic variants on the resident driver at MNIST width
+    (784-128-10, N = 60,000, m = 10, Armijo with 20 trials): f32,
+    bf16-traffic, u8-traffic, u8-warm and u8-warm-nr, TRAFFIC_ITERS
+    iterations each, captured, as the bench builds them; then the deep u8
+    row through K2, the runner's u8input GD and SGD rows, and the first-layer
+    GEMM pair's cost per input dtype."""
+    import contextlib
+    import importlib
+    import io
+
+    from lbfgs_ffnn_torch.data.idx import write_idx_u8
+    from lbfgs_ffnn_torch.experiments import bench, run_mnist
+    from lbfgs_ffnn_torch.objectives.mlp import evaluate, mlp_init, mlp_spec
+    from lbfgs_ffnn_torch.ops.cuda_two_loop import COOPERATIVE, STREAMING, two_loop_cuda
+    from lbfgs_ffnn_torch.solvers.common import Resident, prepared
+
+    sl = importlib.import_module("lbfgs_ffnn_torch.solvers.lbfgs")
+    t_phase = time.perf_counter()
+    aux, source = _data(torch, dev, mnist_root)
+    spec = mlp_spec(DIMS, ACTS)
+    w0 = mlp_init(spec, torch.Generator().manual_seed(SEED), torch.float32, device=dev)
+    base = sl.LBFGSOptions(max_iters=TRAFFIC_ITERS, tol=1e-12, m=M, line_search="armijo",
+                           ls_max_iters=20)
+    rows = bench.variants(spec, base)
+    say("traffic", f"data: {source}; the bench's rows at N={N_TRAIN:,}, {TRAFFIC_ITERS} "
+        f"iterations each on the resident driver (lbfgs_chunked, chunks of "
+        f"{sl.RESIDENT_CHUNK}, as lbfgs() runs them), then lbfgs() again on the same data")
+    sl.clear_graph_cache()
+    f0_f32, k1_launches, ms_iter = None, 0, {}
+    for tag, (problem, opts) in rows.items():
+        # the eager body's first TRAFFIC_CHECK iterations of this very solve
+        eager = sl._solve_resident(problem, w0, aux, opts, chunk=TRAFFIC_CHECK, capture=False,
+                                   pipeline=False, iters=TRAFFIC_CHECK)[0]
+        with torch.no_grad():
+            f0 = float(problem.value_and_grad(w0, prepared(problem, aux))[0])
+        if f0_f32 is None:
+            f0_f32 = f0
+        state = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(two_loop_cuda.LAUNCHES)
+        c0 = Resident.captures
+        res, _ = sl.lbfgs_chunked(problem, w0, aux, opts, chunk=sl.RESIDENT_CHUNK,
+                                  callback=lambda s, t: state.update(s=s))
+        torch.cuda.synchronize()
+        launches = dict(two_loop_cuda.LAUNCHES)
+        captures, capture_s = Resident.captures - c0, Resident.last_capture_s
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        refreshes = int(state["s"].n_refresh)
+        narrow = prepared(problem, aux)
+        # the same solve again: the cached graph on the same prepared copy
+        _reset(two_loop_cuda.LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = sl.lbfgs(problem, w0, aux, opts)
+        end.record()
+        torch.cuda.synchronize()
+        ms_iter[tag] = start.elapsed_time(end) / again.n_iters
+        launches_again = dict(two_loop_cuda.LAUNCHES)
+        check(captures == 1, f"{tag}: the first solve made {captures} captures, not 1")
+        check(Resident.captures == c0 + 1 and prepared(problem, aux) is narrow,
+              f"{tag}: the second solve captured again or got a new prepared copy")
+        check(res.n_iters == again.n_iters == TRAFFIC_ITERS and torch.equal(res.x, again.x),
+              f"{tag}: the second solve differs from the first")
+        lh = res.loss_history.cpu().numpy()
+        check(bool(np.isfinite(lh).all()) and bool(torch.isfinite(res.x).all())
+              and lh[-1] < lh[0] < f0, f"{tag}: non-finite or no fall ({f0} -> {lh[[0, -1]]})")
+        same = {k: torch.equal(getattr(res, k)[:TRAFFIC_CHECK], getattr(eager, k)[:TRAFFIC_CHECK])
+                for k in ("loss_history", "gnorm_history")}
+        check(all(same.values()), f"{tag}: the captured solve's first {TRAFFIC_CHECK} "
+              f"iterations != the eager body's (bitwise {same})")
+        # f0 reads raw x unless fun_input_dtype is set (the u8 rows: exact
+        # operands on grid data, another summation)
+        ok_f0 = abs(f0 - f0_f32) <= 1e-5 * abs(f0_f32) if tag.startswith("u8") else f0 == f0_f32
+        check(ok_f0, f"{tag}: first loss {f0!r} vs f32's {f0_f32!r}")
+        want_refresh = (TRAFFIC_ITERS // 16 if opts.prefix_dtype is not None
+                        and opts.prefix_refresh is None else 0)
+        check(refreshes == want_refresh, f"{tag}: the refresh fired {refreshes} times, not "
+              f"{want_refresh} (device counter)")
+        check(launches == {k: (TRAFFIC_ITERS + 1) * (k == COOPERATIVE) for k in launches}
+              and launches_again[COOPERATIVE] == TRAFFIC_ITERS,
+              f"{tag}: K1 launches {launches} (then {launches_again}) != {TRAFFIC_ITERS} "
+              "iterations + 1 capture (then no capture)")
+        k1_launches += launches[COOPERATIVE]
+        trials = (res.n_fevals - 1) / res.n_iters - 1
+        acc = evaluate(spec, again.x, *aux)["accuracy"]
+        say("traffic", f"[{tag}] {ms_iter[tag]:.4f} ms/iter (CUDA events, the second solve), "
+            f"{trials:.3f} trials/iter, capture {capture_s:.3f} s, peak memory {peak:.2f} GiB, "
+            f"refreshes {refreshes} (device counter), K1 launches {launches[COOPERATIVE]} "
+            f"(then {launches_again[COOPERATIVE]}); first loss {f0:.9g}, final "
+            f"{float(res.final_loss):.6g}, train acc {acc:.2f}%; first {TRAFFIC_CHECK} "
+            f"iterations = eager body bitwise; the second solve captured nothing and read the "
+            f"same prepared copy")
+        if profile and tag in ("f32", "u8-warm"):
+            _profile(torch, lambda: sl.lbfgs(problem, w0, aux, opts))
+    sl.clear_graph_cache()
+
+    pair = _upcast_gemm_pair_us(torch, dev, aux[0])
+    say("traffic", "first-layer GEMM pair (B = x @ W1_p and dW1 = x^T dz1, N=60,000, "
+        "784 x 128, f32 arithmetic, TF32 off; slope over 5 and 25 pairs): "
+        + ", ".join(f"x {k} {v:.1f} us" for k, v in pair.items())
+        + " (narrow x upcast to f32 first, as the objective reads it)")
+    del aux
+
+    # the deep u8 row through K2
+    xd_np, yd_np = bench._fashion(N_TRAIN)
+    daux = (torch.tensor(xd_np, device=dev), torch.tensor(yd_np, device=dev))
+    dspec = mlp_spec(DEEP_DIMS, DEEP_ACTS)
+    dproblem, dopts = bench.deep_variants(dspec, base._replace(m=M_DEEP))["u8 traffic stack"]
+    dopts = dopts._replace(max_iters=TRAFFIC_DEEP_ITERS)
+    dw0 = mlp_init(dspec, torch.Generator().manual_seed(SEED), torch.float32, device=dev)
+    _reset(two_loop_cuda.LAUNCHES)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    dres = sl.lbfgs(dproblem, dw0, daux, dopts)
+    end.record()
+    torch.cuda.synchronize()
+    k2_launches = dict(two_loop_cuda.LAUNCHES)
+    dlh = dres.loss_history.cpu().numpy()
+    check(dres.n_iters == TRAFFIC_DEEP_ITERS and bool(np.isfinite(dlh).all()) and dlh[-1] < dlh[0],
+          f"deep u8: {dres.n_iters} iterations, losses {dlh[[0, -1]]}")
+    check(k2_launches == {k: (TRAFFIC_DEEP_ITERS + 1) * (k == STREAMING) for k in k2_launches},
+          f"deep u8: launches {k2_launches} != {TRAFFIC_DEEP_ITERS} iterations + 1 capture "
+          "through K2")
+    say("traffic", f"deep 784-256-128-64-10 m=100 [u8 traffic stack], seeded Fashion labels: "
+        f"{TRAFFIC_DEEP_ITERS} iterations, first solve (capture included) "
+        f"{start.elapsed_time(end) / 1e3:.2f} s, loss {dlh[0]:.6g} -> {dlh[-1]:.6g}; K2 launches "
+        f"(device count) {k2_launches[STREAMING]} = {TRAFFIC_DEEP_ITERS} + 1 capture")
+    del daux
+    sl.clear_graph_cache()
+
+    # the runner's u8input GD and SGD rows
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "mnist"
+        root.mkdir()
+        rng = np.random.default_rng(SEED)
+        write_idx_u8(root / "train-labels.idx1-ubyte", rng.integers(0, 10, N_TRAIN, dtype=np.uint8))
+        write_idx_u8(root / "t10k-labels.idx1-ubyte", rng.integers(0, 10, 10_000, dtype=np.uint8))
+        argv = ["--u8-input", "--only", "GD_u8input", "--iters", str(TRAFFIC_FO),
+                "--timed-chunks", str(TRAFFIC_FO), "--data-root", str(root), "--out-dir",
+                str(Path(tmp) / "out")]
+        text = io.StringIO()
+        c0 = Resident.captures
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            done = run_mnist.main(argv)
+        wall = time.perf_counter() - t0
+    names = [c.name for _, c, _ in done]
+    check(names == ["MNIST_GD_u8input", "MNIST_SGD_u8input"], f"runner u8 rows: {names}")
+    check(Resident.captures - c0 == 2, f"runner u8 rows: {Resident.captures - c0} captures")
+    for solver, cfg, rep in done:
+        lh = rep.result.loss_history[:rep.result.n_iters].cpu().numpy()
+        check(rep.result.n_iters > 0 and bool(np.isfinite(lh).all()) and lh[-1] < lh[0],
+              f"{cfg.name}: losses {lh}")
+    for line in text.getvalue().splitlines():
+        if line.startswith("["):
+            say("traffic", f"  {line}")
+    say("traffic", f"python -m lbfgs_ffnn_torch.experiments.run_mnist {' '.join(argv)}: rows "
+        f"{names}, {wall:.1f} s; phase time {time.perf_counter() - t_phase:.1f} s")
+    sl.clear_graph_cache()
+    return {"K1": k1_launches, "K2": k2_launches[STREAMING], "ms_iter": ms_iter, "pair": pair}
+
+
+
 def _stream_split(torch, dev, bp, w0, x_h, y_h, x, y) -> dict:
     """ms per step, host clock, over one epoch's batches, of each part of a
     ``sgd_streaming`` step alone: the stream's ``next()`` (its producer
@@ -1892,6 +2121,11 @@ def bench_phase():
           and out.get("unit") == "ms/iter" and np.isfinite(out.get("value", np.nan))
           and out["value"] > 0 and abs(out["vs_baseline"] - 7.20 / out["value"]) < 2e-3,
           f"the bench's line is not the contract: {lines[-1]}")
+    heads = [ln for ln in proc.stderr.splitlines() if ln.startswith("headline config: ")]
+    check(len(heads) == 1 and re.match(r"headline config: ([\w-]+);", heads[0]) is not None
+          and re.match(r"headline config: ([\w-]+);", heads[0]).group(1)
+          in ("f32", "bf16-traffic", "u8-traffic", "u8-warm", "u8-warm-nr"),
+          f"the bench's headline config line is missing or names no row: {heads}")
     say("bench", f"{lines[-1]} ({time.perf_counter() - t0:.1f} s)")
     return out
 
@@ -1926,6 +2160,7 @@ def main() -> None:
     launches_sl, sl_ms, sl_k1_us = stochastic_phase(torch, dev, args.profile, args.mnist_root)
     pinn = pinn_phase(torch, dev, args.profile)
     fo = first_order_phase(torch, dev, args.profile, args.mnist_root)
+    traffic = traffic_phase(torch, dev, args.profile, args.mnist_root)
     runner1, runner2 = fo["runner"].get(COOPERATIVE, 0), fo["runner"].get(STREAMING, 0)
 
     def entry(name, impl, replaces, launches, worst, m, n):
@@ -1947,16 +2182,18 @@ def main() -> None:
     k1_pinn, k1_ring = pinn["K1"]
     k2_pinn, k2_ring = pinn["K2"]
     k1 = entry("two_loop_cooperative", COOPERATIVE, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:173",
-               launches1r + launches_sl + k1_pinn + runner1, worst1, M, n)
+               launches1r + launches_sl + k1_pinn + runner1 + traffic["K1"], worst1, M, n)
     # K1 and K2 run on several main paths, each counted from 0 just before its
     # solve; their PINN ring shapes are timed in the pinn phase
     k1["launches_by_path"] = {"resident L-BFGS": launches1r, "stochastic S-LBFGS": launches_sl,
-                              "PINN oscillator": k1_pinn, "runner MNIST": runner1}
+                              "PINN oscillator": k1_pinn, "runner MNIST": runner1,
+                              "traffic variants": traffic["K1"]}
     k1["pinn_ring"] = k1_ring
     k2 = entry("two_loop_streaming", STREAMING, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:81",
-               launches2 + k2_pinn + runner2, worst2, M_DEEP, _n_params(DEEP_DIMS))
+               launches2 + k2_pinn + runner2 + traffic["K2"], worst2, M_DEEP,
+               _n_params(DEEP_DIMS))
     k2["launches_by_path"] = {"deep Fashion L-BFGS": launches2, "PINN Burgers": k2_pinn,
-                              "runner MNIST": runner2}
+                              "runner MNIST": runner2, "deep u8 traffic": traffic["K2"]}
     k2["pinn_ring"] = k2_ring
     kernels = [
         k1,
@@ -1980,6 +2217,9 @@ def main() -> None:
         + "; SGD N=60000 b=256 ms/epoch: " + ", ".join(f"{k} {v:.4f}"
                                                        for k, v in fo["sgd_ms"].items())
         + f", streamed {fo['stream_ms']:.4f}"
+        + "; traffic variants ms/iter: " + ", ".join(f"{k} {v:.4f}"
+                                                     for k, v in traffic["ms_iter"].items())
+        + "; GEMM pair us: " + ", ".join(f"{k} {v:.1f}" for k, v in traffic["pair"].items())
         + f"; whole script {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,8 +11,8 @@ replayed CUDA graph, the Wolfe trials a WHILE node in it) through the
 two-loop kernel the dispatch picks for the m=100 ring (the streaming
 kernel); a short warm-up on a perturbed init captures that graph first, so
 the timed solve (CUDA events) replays it. ``--device cpu`` runs the
-early-exit loop. ``--warm-alpha`` is not ported yet (ROADMAP queue 1
-item 3) and raises. :mod:`lbfgs_ffnn_torch.experiments.burgers_validate`
+early-exit loop. ``--warm-alpha`` starts each Wolfe search after the
+first at min(1, 8 * the previous step) (``ls_alpha_init="warm"``). :mod:`lbfgs_ffnn_torch.experiments.burgers_validate`
 holds the CSV against the finite-difference oracle.
 
 Usage: python -m lbfgs_ffnn_torch.experiments.run_burgers [--iters 5000] [--coarse] [--device cpu]
@@ -42,22 +42,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="L-BFGS curvature pairs: grad_diff (the reference's) or hvp (exact "
                         "H*s, one Hessian-vector product per iteration)")
     p.add_argument("--warm-alpha", action="store_true",
-                   help="warm-started Wolfe initial step (ls_alpha_init='warm'): not ported "
-                        "yet (ROADMAP queue 1 item 3)")
+                   help="warm-started line-search initial step (ls_alpha_init='warm'): "
+                        "each Wolfe search after the first starts at min(1, 8*alpha_prev) "
+                        "instead of alpha0=1")
     p.add_argument("--seed", type=int, default=123, help="init seed (torch.Generator)")
     p.add_argument("--out", default="burgers_test_extrapolation.csv")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     return p
 
 
-def options(iters: int, f64: bool, curvature: str = "grad_diff") -> LBFGSOptions:
+def options(iters: int, f64: bool, curvature: str = "grad_diff",
+            warm_alpha: bool = False) -> LBFGSOptions:
     """The runner's L-BFGS options. f32 runs use the scale-invariant
     curvature gate (the absolute 1e-10 gate under-rejects noisy f32 pairs
     near the plateau); the lean trials are jvps, cheaper than fused ones on
     the PINN plateau's many trials per iteration."""
     return LBFGSOptions(max_iters=iters, tol=1e-10, m=100, ls_max_iters=100,
                         curvature_rel_eps=0.0 if f64 else 1e-6, ls_value_only=True,
-                        curvature_pairs=curvature, two_loop_impl="cuda")
+                        curvature_pairs=curvature, two_loop_impl="cuda",
+                        ls_alpha_init="warm" if warm_alpha else "fixed")
 
 
 def write_csv(path, spec, w) -> None:
@@ -78,9 +81,6 @@ def main(argv=None) -> dict:
     ``result``, its ``seconds``, ``ms_iter``, the ``warmup`` solve (None on
     the CPU), ``capture_s`` and ``csv``."""
     args = build_parser().parse_args(argv)
-    if args.warm_alpha:
-        raise NotImplementedError("--warm-alpha (ls_alpha_init=\"warm\") is not ported yet "
-                                  "(ROADMAP queue 1 item 3)")
     dev = torch.device(args.device)
     dtype = torch.float64 if args.f64 else torch.float32
     spec = default_burgers_spec()
@@ -91,7 +91,7 @@ def main(argv=None) -> dict:
         pts = burgers_points(dtype=dtype, device=dev)
     print(f"PDE Points: {pts.col_xt.shape[0]}")
     w0 = pinn_init(spec, torch.Generator().manual_seed(args.seed), dtype, device=dev)
-    opts = options(args.iters, args.f64, args.curvature)
+    opts = options(args.iters, args.f64, args.curvature, args.warm_alpha)
 
     warm, capture_s = None, None
     if dev.type == "cuda":  # captures the timed solve's iteration

@@ -3,10 +3,20 @@ tests/mnist/main-{cpu,gpu}.cpp configurations, as the JAX package's
 ``experiments/run_mnist.py`` builds them.
 
 Style "cuda" (reference main-gpu.cpp: 60,000 samples):
-  GD(mom .9) -> SGD(b=256, decay .8/40) -> L-BFGS m=10 -> L-BFGS m=100,
-  with ``--bf16-ring`` adding L-BFGS m=10 and m=100 on a bfloat16 ring.
+  GD(mom .9) -> SGD(b=256, decay .8/40) -> L-BFGS m=10 -> L-BFGS m=100.
 Style "cpu" (reference main-cpu.cpp: 5,000 samples):
   GD(mom .9) -> SGD(b=256, lr .03) -> S-LBFGS -> L-BFGS(m=20, Wolfe).
+The JAX runner's variant flags each add L-BFGS m=10 and m=100 rows named
+``<NAME>_LBFGS_m<m>_<suffix>``: ``--bf16-ring`` (bf16ring),
+``--bf16-grad-input`` (bf16gradin), ``--bf16-prefix`` (bf16prefix),
+``--bf16-line-input`` (bf16lineinput), ``--bf16-all`` (bf16all: the four),
+``--u8-input`` (u8input: the uint8 input copy in every first-layer GEMM),
+``--u8-all`` (u8all: u8input + bf16 ring and prefix) and ``--warm-alpha``
+(warmalpha, and u8warm: u8all + warm alpha); ``--u8-input`` and
+``--u8-all`` also add ``<NAME>_GD_u8input`` and, in the cuda style,
+``<NAME>_SGD_u8input``. ``--bf16-compute`` and ``--batched-ls`` are not
+ported (ROADMAP's do-not-port list): each prints one line saying so and
+the runner exits non-zero.
 
 Runs on the card unless ``--device cpu``. Each run writes
 ``<name>_history.csv`` into ``--out-dir`` (``--record-accuracy`` adds the
@@ -48,6 +58,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16-ring", action="store_true",
                    help="add L-BFGS runs storing the curvature ring in bfloat16 (half "
                         "the two-loop's history traffic; its arithmetic stays f32)")
+    p.add_argument("--bf16-grad-input", action="store_true",
+                   help="add L-BFGS runs reading a bf16 copy of x in the accepted point's "
+                        "dW1 GEMM only")
+    p.add_argument("--bf16-prefix", action="store_true",
+                   help="add L-BFGS runs storing the carried line prefix in bf16 (arithmetic "
+                        "f32, re-anchored every 16 iterations)")
+    p.add_argument("--bf16-line-input", action="store_true",
+                   help="add L-BFGS runs reading a bf16 copy of x in the prefix GEMMs")
+    p.add_argument("--bf16-all", action="store_true",
+                   help="add L-BFGS runs with the bf16 ring, grad input, line input and "
+                        "prefix together")
+    p.add_argument("--u8-input", action="store_true",
+                   help="add L-BFGS runs reading a uint8 pixel-quantized copy of x in every "
+                        "first-layer GEMM (exact for k/255 pixel data), and the GD (and, in "
+                        "the cuda style, SGD) u8input rows")
+    p.add_argument("--u8-all", action="store_true",
+                   help="add L-BFGS runs with the uint8 input copy, the bf16 ring and the "
+                        "bf16 prefix, and the u8input GD/SGD rows")
+    p.add_argument("--warm-alpha", action="store_true",
+                   help="add L-BFGS runs with the warm-started line search "
+                        "(ls_alpha_init='warm': alpha0 = min(1, 8*previous step)), alone and "
+                        "on the u8 traffic configuration")
+    p.add_argument("--bf16-compute", action="store_true",
+                   help="not ported (bf16 matmul operands): prints so and exits non-zero")
+    p.add_argument("--batched-ls", action="store_true",
+                   help="not ported (the batched Armijo ladder): prints so and exits "
+                        "non-zero")
     p.add_argument("--plain-two-loop", action="store_true",
                    help="use the plain torch two-loop instead of the Hopper kernels")
     p.add_argument("--only", type=str, default="",
@@ -105,12 +142,37 @@ def run_list(args) -> list[tuple[str, UnifiedConfig]]:
                                     tolerance=1e-3, m_param=100, log_interval=1,
                                     two_loop_impl=two_loop)),
         ]
-    if args.bf16_ring:
+    u8 = dict(line_input_dtype="uint8", grad_input_dtype="uint8", fun_input_dtype="uint8")
+    u8_all = dict(u8, pair_dtype="bfloat16", prefix_dtype="bfloat16")
+    for enabled, suffix, extra in (
+            (args.bf16_ring, "bf16ring", dict(pair_dtype="bfloat16")),
+            (args.bf16_grad_input, "bf16gradin", dict(grad_input_dtype="bfloat16")),
+            (args.bf16_prefix, "bf16prefix", dict(prefix_dtype="bfloat16")),
+            (args.bf16_line_input, "bf16lineinput", dict(line_input_dtype="bfloat16")),
+            (args.bf16_all, "bf16all", dict(pair_dtype="bfloat16", grad_input_dtype="bfloat16",
+                                            line_input_dtype="bfloat16",
+                                            prefix_dtype="bfloat16")),
+            (args.u8_input, "u8input", u8),
+            (args.u8_all, "u8all", u8_all),
+            (args.warm_alpha, "warmalpha", dict(ls_alpha_init="warm")),
+            (args.warm_alpha, "u8warm", dict(u8_all, ls_alpha_init="warm"))):
+        if not enabled:
+            continue
         for m in (10, 100):
             runs.append(("lbfgs", UnifiedConfig(
-                name=f"{name}_LBFGS_m{m}_bf16ring", max_iters=args.iters,
+                name=f"{name}_LBFGS_m{m}_{suffix}", max_iters=args.iters,
                 tolerance=1e-3 if args.style == "cuda" else 1e-4, m_param=m,
-                log_interval=1, two_loop_impl=two_loop, pair_dtype="bfloat16")))
+                log_interval=1, two_loop_impl=two_loop, **extra)))
+    if args.u8_input or args.u8_all:
+        # GD's and SGD's iterations read x whole: fun_input_dtype is their lever
+        runs.append(("gd", UnifiedConfig(
+            name=f"{name}_GD_u8input", max_iters=args.iters, tolerance=1e-3,
+            learning_rate=0.02, momentum=0.9, log_interval=1, fun_input_dtype="uint8")))
+        if args.style == "cuda":
+            runs.append(("sgd", UnifiedConfig(
+                name=f"{name}_SGD_u8input", max_iters=args.iters, tolerance=1e-3,
+                learning_rate=0.01, batch_size=256, log_interval=5, lr_decay=0.80,
+                lr_decay_rate=40, fun_input_dtype="uint8")))
     return runs
 
 
@@ -141,6 +203,11 @@ def main(argv=None) -> list[tuple[str, UnifiedConfig, TrainReport]]:
     the first seed's of each row."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    for flag, what in (("bf16_compute", "--bf16-compute (compute_dtype='bfloat16')"),
+                       ("batched_ls", "--batched-ls (line_search='armijo_batched')")):
+        if getattr(args, flag):
+            print(f"{what}: not ported (ROADMAP's do-not-port list)")
+            raise SystemExit(2)
     runs = run_list(args)
     if args.only:
         runs = [(s, c) for s, c in runs if args.only in c.name]

@@ -28,10 +28,14 @@ and Wolfe), ``"sgd"`` (its options mapped as the JAX launcher's
 ``m_inner = N // batch_size``, ``b_H = batch_size // 2`` unless set).
 ``record_accuracy`` records the stochastic solvers' per-epoch accuracy,
 ``[TrainAcc, TestAcc]`` with a held-out split (``TrainAcc`` alone without),
-as extra CSV columns. Not ported yet, and raising ``NotImplementedError``
-with their ROADMAP item: ``compute_dtype``, ``prefix_dtype``, the
-``*_input_dtype`` copies (the uint8 input among them) and
-``ls_alpha_init="warm"``.
+as extra CSV columns. The traffic options are JAX's: the
+``*_input_dtype`` copies (one problem per combination of them, cached, so
+the warm-up and the timed solve share the captured step), the SGD rows'
+pixel-quantized x under ``fun_input_dtype="uint8"`` (one cached copy),
+``prefix_dtype`` and ``ls_alpha_init``/``ls_alpha_growth`` for L-BFGS;
+S-LBFGS refuses ``fun_input_dtype`` with JAX's ``ValueError``. Not ported,
+and raising ``NotImplementedError``: ``compute_dtype`` (ROADMAP's
+do-not-port list).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import torch
 from lbfgs_ffnn_torch.data.datasets import Dataset
 from lbfgs_ffnn_torch.objectives.mlp import (
     MLPSpec, evaluate, mlp_apply, mlp_batch_problem, mlp_init, mlp_problem, mlp_spec,
+    quantize_pixels,
 )
 from lbfgs_ffnn_torch.recorder import History, history_from_result, write_history_csv
 from lbfgs_ffnn_torch.solvers.gd import GDOptions, gd_chunked, gd_warm_up, gradient_descent
@@ -69,15 +74,8 @@ _DRIVERS = {"gd": (gradient_descent, gd_chunked, "max_iters", gd_warm_up),
 # (full_batch_minimizer.hpp), the reference CUDA backend's Armijo
 # (minimizer_base.cuh)
 _LS_BUDGETS = {"wolfe": 50, "armijo": 20}
-# config field -> (its value when unused, ROADMAP queue 1 item that ports it)
-_UNPORTED_FIELDS = {
-    "compute_dtype": (None, 3),
-    "grad_input_dtype": (None, 3),
-    "line_input_dtype": (None, 3),
-    "fun_input_dtype": (None, 3),
-    "prefix_dtype": (None, 3),
-    "ls_alpha_init": ("fixed", 3),
-}
+# config field -> its value when unused; anything else raises
+_UNPORTED_FIELDS = {"compute_dtype": None}
 
 
 @dataclasses.dataclass
@@ -86,7 +84,7 @@ class UnifiedConfig:
     read, with its names and defaults except ``two_loop_impl`` ("cuda": the
     Hopper kernels on CUDA tensors and the plain loop on CPU ones; "plain":
     the plain loop everywhere; "compact": the plain compact form), plus
-    those that raise until ported."""
+    ``compute_dtype``, which raises unless None."""
 
     name: str = "Experiment"
     max_iters: int = 100
@@ -109,13 +107,13 @@ class UnifiedConfig:
     pair_dtype: Optional[str] = None  # "bfloat16": the curvature ring in bf16
     timed_chunks: int = 0  # K > 0: measured K-iteration (K-epoch) chunks
     record_accuracy: bool = False  # SGD, S-LBFGS: per-epoch TrainAcc (and TestAcc) columns
-    # Not ported yet: anything but these values raises.
-    compute_dtype: Optional[str] = None
-    prefix_dtype: Optional[str] = None
-    grad_input_dtype: Optional[str] = None
-    line_input_dtype: Optional[str] = None
-    fun_input_dtype: Optional[str] = None
-    ls_alpha_init: str = "fixed"
+    compute_dtype: Optional[str] = None  # not ported: anything but None raises
+    prefix_dtype: Optional[str] = None  # L-BFGS: the carried prefix's storage ("bfloat16")
+    grad_input_dtype: Optional[str] = None  # the accept point's dW1 reads x narrow
+    line_input_dtype: Optional[str] = None  # the prefix GEMMs read x narrow
+    fun_input_dtype: Optional[str] = None  # the full objective (GD; SGD's x as uint8)
+    ls_alpha_init: str = "fixed"  # L-BFGS: "fixed" | "warm"
+    ls_alpha_growth: float = 8.0  # "warm": alpha0 = min(1, growth * alpha_prev)
 
 
 @dataclasses.dataclass
@@ -138,10 +136,11 @@ class TrainReport:
 def _check_ported(solver: str, c: UnifiedConfig) -> None:
     if solver not in _DRIVERS:
         raise ValueError(f"unknown solver {solver!r}")
-    for name, (unused, item) in _UNPORTED_FIELDS.items():
+    for name, unused in _UNPORTED_FIELDS.items():
         if getattr(c, name) != unused:
             raise NotImplementedError(f"UnifiedConfig({name}={getattr(c, name)!r}) is not "
-                                      f"ported yet (ROADMAP queue 1 item {item})")
+                                      "ported (ROADMAP: not ported unless an H100 measurement "
+                                      "asks)")
 
 
 class Launcher:
@@ -176,8 +175,9 @@ class Launcher:
 
     def build_network(self, seed: int = 123) -> "Launcher":
         self.spec = mlp_spec(self._dims, self._acts)
-        self._problem = mlp_problem(self.spec)
+        self._problems = {}  # input dtypes -> one Problem: captured steps key on it
         self._batch_problems = {}  # lam -> one BatchProblem: captured epochs key on it
+        self._xq = None  # the pixel-quantized x of the stochastic rows
         self._accuracy = None      # the metric: captured epochs key on it too
         self._bind_params(seed)
         return self
@@ -194,6 +194,7 @@ class Launcher:
         self._x, self._y = put(dataset.train_x), put(dataset.train_y)
         self._tx, self._ty = put(dataset.test_x), put(dataset.test_y)
         self._accuracy = None  # its columns depend on the held-out split
+        self._xq = None
         return self
 
     # -- training -----------------------------------------------------------
@@ -281,10 +282,32 @@ class Launcher:
         ``(x, y)`` of the stochastic ones."""
         if solver in ("gd", "lbfgs"):
             opts = self._gd_opts(c) if solver == "gd" else self._lbfgs_opts(c)
-            return self._problem, ((self._x, self._y),), opts, {}
+            return self._problem(c), ((self._x, self._y),), opts, {}
         opts = self._sgd_opts(c) if solver == "sgd" else self._slbfgs_opts(c)
-        return (self._batch_problem(c, solver), (self._x, self._y), opts,
+        return (self._batch_problem(c, solver), (self._stochastic_x(c), self._y), opts,
                 {"metric_args": self._metric_args(c)})
+
+    def _problem(self, c: UnifiedConfig):
+        """The full-batch objective for the config's input dtypes, one per
+        combination (JAX's ``_get_problem``)."""
+        key = (c.grad_input_dtype, c.line_input_dtype, c.fun_input_dtype)
+        if key not in self._problems:
+            self._problems[key] = mlp_problem(self.spec, grad_input_dtype=key[0],
+                                              line_input_dtype=key[1], fun_input_dtype=key[2])
+        return self._problems[key]
+
+    def _stochastic_x(self, c: UnifiedConfig):
+        """x as the stochastic solvers read it: under ``fun_input_dtype=
+        "uint8"`` the pixel-quantized copy, made once per data (JAX's
+        ``_stochastic_x``)."""
+        if c.fun_input_dtype is None:
+            return self._x
+        if c.fun_input_dtype != "uint8":
+            raise ValueError(f"stochastic solvers support fun_input_dtype=None or 'uint8', "
+                             f"got {c.fun_input_dtype!r}")
+        if self._xq is None:
+            self._xq = quantize_pixels(self._x)
+        return self._xq
 
     def _solve(self, solver: str, c: UnifiedConfig, max_iters: int) -> SolveResult:
         whole, _, length, _ = _DRIVERS[solver]
@@ -303,6 +326,8 @@ class Launcher:
             m=c.m_param if c.m_param > 0 else 10,
             line_search=ls, ls_max_iters=_LS_BUDGETS[ls],
             two_loop_impl=c.two_loop_impl, pair_dtype=c.pair_dtype,
+            prefix_dtype=c.prefix_dtype, ls_alpha_init=c.ls_alpha_init,
+            ls_alpha_growth=c.ls_alpha_growth,
         )
 
     def _batch_problem(self, c: UnifiedConfig, solver: str = "slbfgs"):
@@ -357,6 +382,9 @@ class Launcher:
     def _slbfgs_opts(self, c: UnifiedConfig) -> SLBFGSOptions:
         # The reference strategy's sizes: m_inner = N / batch, b_H = batch / 2
         # (unified_optimization.hpp:314-405).
+        if c.fun_input_dtype is not None:
+            raise ValueError("fun_input_dtype is not supported for slbfgs (only sgd/gd/lbfgs); "
+                             f"got {c.fun_input_dtype!r}")
         return SLBFGSOptions(
             metric_fn=self._accuracy_metric()[0] if c.record_accuracy else None,
             epochs=c.max_iters, tol=c.tolerance,

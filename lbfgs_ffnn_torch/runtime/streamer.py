@@ -30,16 +30,20 @@ class BatchStreamer:
     """Endless stream of shuffled ``(x_batch, y_batch, count, epoch)``.
 
     ``x``/``y`` are ``(n, xdim)``/``(n, ydim)`` arrays, read as float32 (a
-    copy only where they are not float32 and contiguous already). ``device``
-    is the consumer's: CUDA pins the staging buffers. The batches are float32
-    CPU tensors of ``batch_size`` rows, the rows past ``count`` zero; they
+    copy only where they are not float32 and contiguous already), but a
+    uint8 ``x`` (pixel-quantized, ``objectives.mlp.quantize_pixels``) stays
+    uint8: a quarter of the bytes to gather and copy. ``device`` is the
+    consumer's: CUDA pins the staging buffers. The batches are CPU tensors
+    (x's dtype, y float32) of ``batch_size`` rows, the rows past ``count``
+    zero; they
     are staging buffers, valid until the following :meth:`next` (or
     :meth:`close`), which hands the buffer back to the producer.
     """
 
     def __init__(self, x, y, batch_size: int, seed: int = 123, depth: int = 4,
                  drop_last: bool = False, device: str | torch.device = "cpu"):
-        self._x = np.ascontiguousarray(x, dtype=np.float32)
+        x = np.asarray(x)
+        self._x = np.ascontiguousarray(x, dtype=np.uint8 if x.dtype == np.uint8 else np.float32)
         self._y = np.ascontiguousarray(y, dtype=np.float32)
         if self._x.ndim != 2 or self._y.ndim != 2 or len(self._x) != len(self._y):
             raise ValueError("x, y must be 2-D with matching leading dim")
@@ -53,7 +57,7 @@ class BatchStreamer:
         self.drop_last = drop_last
         self.pinned = torch.device(device).type == "cuda"
         self._buffers = [
-            tuple(torch.zeros((self.batch_size, a.shape[1]), dtype=torch.float32,
+            tuple(torch.zeros((self.batch_size, a.shape[1]), dtype=torch.from_numpy(a[:0]).dtype,
                               pin_memory=self.pinned) for a in (self._x, self._y))
             for _ in range(depth)]
         self._free: queue.Queue = queue.Queue()

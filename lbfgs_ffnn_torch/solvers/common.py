@@ -109,7 +109,7 @@ def lean_gate(problem, ls_value_only) -> bool:
 
 
 def wolfe_with_counters(problem, opts, x, p, f0, dg0, aux, lean: bool, *, value_along=None,
-                        vag_along=None, live=None):
+                        vag_along=None, live=None, alpha0=1.0):
     """The device-form Wolfe search (its trials one device loop) with the
     evaluation counters it adds, ``(ls, nf_add, ng_add)`` as int32 device
     scalars: a lean search counts its trials plus one value-and-gradient at
@@ -118,10 +118,12 @@ def wolfe_with_counters(problem, opts, x, p, f0, dg0, aux, lean: bool, *, value_
     one more when it ran out of trials unevaluated. ``opts`` gives ``c1``,
     ``c2``, ``ls_shrink`` and ``ls_max_iters``; lean trials go through
     ``value_along`` (``alpha -> f(x + alpha p)``) when given, else a jvp of
-    ``problem.fun``; ``live`` is the enclosing guard's flag."""
+    ``problem.fun``; ``live`` is the enclosing guard's flag; ``alpha0`` the
+    first trial step (a float or a device scalar)."""
     ls = wolfe_line_search_device(
         problem.value_and_grad, x, p, f0, dg0, aux,
         c1=opts.c1, c2=opts.c2, shrink=opts.ls_shrink, max_iters=opts.ls_max_iters,
+        alpha0=alpha0,
         value=problem.fun if lean else None,
         value_along=value_along if lean else None,
         vag_along=vag_along if lean else None,
@@ -379,6 +381,33 @@ def cached_resident(key: tuple, make: Callable[[], Resident]) -> Resident:
     return _GRAPHS[key]
 
 
+_PREPARED: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
+
+
+def prepared(problem, aux):
+    """``problem.prepare(aux)`` (``aux`` itself when the problem has no
+    ``prepare``), made once per problem and data and kept beside the
+    captured steps: a second solve on the same tensors gets the same
+    prepared ones (the same narrow copy at the same address), so its
+    :func:`data_key` finds the captured step again instead of capturing
+    anew. Keyed on the problem and the raw tensors' :func:`data_key` and
+    version counters (an in-place change of the data makes a new copy);
+    the entry holds the raw aux too, so its addresses are not reused while
+    it stands."""
+    if problem.prepare is None:
+        return aux
+    key = (problem, data_key(aux), tuple(t._version for t in tensors(aux)))
+    if key in _PREPARED:
+        _PREPARED.move_to_end(key)
+        return _PREPARED[key][1]
+    while len(_PREPARED) >= RESIDENT_CACHE_SIZE:
+        _PREPARED.popitem(last=False)
+    _PREPARED[key] = (aux, problem.prepare(aux))
+    return _PREPARED[key][1]
+
+
 def clear_graph_cache() -> None:
-    """Drop every captured step (and the memory pools they hold)."""
+    """Drop every captured step (and the memory pools they hold) and every
+    prepared copy of the data."""
     _GRAPHS.clear()
+    _PREPARED.clear()

@@ -37,9 +37,9 @@ from lbfgs_ffnn_torch.ops.control import assign, guard
 from lbfgs_ffnn_torch.ops.linesearch import wolfe_line_search
 from lbfgs_ffnn_torch.solvers.common import (
     Resident, cached_resident, data_key, drive_resident, finalize, full_f32, init_history,
-    lean_gate, record, record_at, wolfe_with_counters,
+    lean_gate, prepared, record, record_at, wolfe_with_counters,
 )
-from lbfgs_ffnn_torch.types import Problem, SolveResult, prepared_aux
+from lbfgs_ffnn_torch.types import Problem, SolveResult
 
 
 class GDOptions(NamedTuple):
@@ -160,7 +160,7 @@ def _solve(problem: Problem, x0: Optional[torch.Tensor], aux, opts: GDOptions, *
     if capture and not like.is_cuda:
         raise ValueError(f"a captured solve needs CUDA tensors, got {like.device}")
     with full_f32(), torch.no_grad():
-        aux = prepared_aux(problem, aux)
+        aux = prepared(problem, aux)
         body = _make_resident_body(problem, opts)
 
         def make():
@@ -254,7 +254,7 @@ def _gd_loop(problem: Problem, x0: torch.Tensor, aux: Any = (),
     opts = opts or GDOptions()
     lean = lean_gate(problem, opts.ls_value_only)
     with full_f32(), torch.no_grad():
-        aux = prepared_aux(problem, aux)
+        aux = prepared(problem, aux)
         f, g = problem.value_and_grad(x0, aux)
         gnorm = torch.linalg.norm(g)
         loss_h, gnorm_h = init_history(opts.max_iters, x0.dtype, x0.device)

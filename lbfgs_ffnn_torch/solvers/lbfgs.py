@@ -43,9 +43,20 @@ solver dtype.
 ``curvature_pairs="hvp"`` takes y = H(x_new) s by one Hessian-vector
 product (``Problem.hvp``), on both branches, as in JAX.
 
+The traffic options, on both drivers and both searches, as in JAX:
+``prefix_dtype`` stores the carried line prefix narrow (its combines and
+the accept axpy upcast to the solver dtype, then round to storage), and
+``prefix_refresh`` (16 by default under ``prefix_dtype``) re-anchors it
+from the fresh iterate every N iterations: on the resident driver an IF
+node on ``(k + 1) % N == 0`` computed on the device, which also counts
+the refreshes in the state (``n_refresh``); ``ls_alpha_init="warm"``
+starts each search after the first at ``min(1, ls_alpha_growth *
+alpha_prev)``, ``alpha_prev`` the previous step (on a failed search the
+step the search returned: Armijo's last trial, Wolfe's re-evaluated one).
+
 Not ported yet (each raises ``NotImplementedError``): the batched Armijo
-search, ``ls_alpha_init="warm"``, the sharded two-loops, pair dtypes other
-than bfloat16, ``prefix_dtype`` with ``prefix_refresh``, and ``mesh``.
+search, the sharded two-loops, pair dtypes other than bfloat16, and
+``mesh``.
 """
 
 from __future__ import annotations
@@ -64,10 +75,10 @@ from lbfgs_ffnn_torch.ops.two_loop import (
 )
 from lbfgs_ffnn_torch.solvers.common import (  # clear_graph_cache: re-exported
     Resident, cached_resident, clear_graph_cache, data_key, drive_resident,  # noqa: F401
-    finalize, full_f32, init_history, lean_gate, record, record_at, tensors,
+    finalize, full_f32, init_history, lean_gate, prepared, record, record_at, tensors,
     wolfe_with_counters,
 )
-from lbfgs_ffnn_torch.types import Problem, SolveResult, prepared_aux
+from lbfgs_ffnn_torch.types import Problem, SolveResult
 
 
 class LBFGSOptions(NamedTuple):
@@ -93,15 +104,16 @@ class LBFGSOptions(NamedTuple):
     ls_value_only: bool | None = None
     pair_dtype: str | None = None
     prefix_dtype: str | None = None
-    prefix_refresh: int | None = None
-    ls_alpha_init: str = "fixed"
+    prefix_refresh: int | None = None  # None: 16 under prefix_dtype, else 0 (never)
+    ls_alpha_init: str = "fixed"       # "fixed" (alpha0 = 1) | "warm"
+    ls_alpha_growth: float = 8.0       # "warm": alpha0 = min(1, growth * alpha_prev)
 
 
 def _check_options(opts: LBFGSOptions) -> None:
     choices = {
         "line_search": (opts.line_search, ("wolfe", "armijo"), ("armijo_batched",)),
         "curvature_pairs": (opts.curvature_pairs, ("grad_diff", "hvp"), ()),
-        "ls_alpha_init": (opts.ls_alpha_init, ("fixed",), ("warm",)),
+        "ls_alpha_init": (opts.ls_alpha_init, ("fixed", "warm"), ()),
         "two_loop_impl": (opts.two_loop_impl, ("plain", "cuda", "compact"), ("xla", "pallas")),
     }
     for name, (val, ported, later) in choices.items():
@@ -112,13 +124,52 @@ def _check_options(opts: LBFGSOptions) -> None:
     if opts.pair_dtype not in (None, "bfloat16"):
         raise NotImplementedError(f"LBFGSOptions(pair_dtype={opts.pair_dtype!r}) is not "
                                   "ported yet: the narrow ring is bfloat16")
-    if opts.prefix_dtype is not None:
-        raise NotImplementedError("LBFGSOptions(prefix_dtype=...) is not ported yet")
-    if opts.prefix_refresh not in (None, 0):
-        raise NotImplementedError("LBFGSOptions(prefix_refresh=...) is not ported yet")
+    _prefix_dtype(opts)
+    if _prefix_refresh_n(opts) < 0:
+        raise ValueError(f"prefix_refresh must be >= 0 or None, got {opts.prefix_refresh}")
 
 
 _PAIR_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+
+
+def _prefix_dtype(opts: LBFGSOptions):
+    """The carried prefix's storage dtype (None: the solver dtype)."""
+    if opts.prefix_dtype is None:
+        return None
+    d = getattr(torch, str(opts.prefix_dtype), None)
+    if not isinstance(d, torch.dtype) or not d.is_floating_point:
+        raise ValueError(f"prefix_dtype must name a floating dtype, got {opts.prefix_dtype!r}")
+    return d
+
+
+def _prefix_cast(opts: LBFGSOptions):
+    """The cast of a prefix to ``prefix_dtype`` (identity when unset),
+    applied wherever a prefix is made: init, each direction's B, the
+    Armijo carry, the accept axpy, a refresh, a resume."""
+    d = _prefix_dtype(opts)
+    return (lambda P: P) if d is None else (lambda P: P.to(d))
+
+
+def _prefix_refresh_n(opts: LBFGSOptions) -> int:
+    """Iterations between re-anchors of the carried prefix: JAX's default,
+    16 under ``prefix_dtype``, else 0 (never)."""
+    if opts.prefix_refresh is None:
+        return 16 if opts.prefix_dtype is not None else 0
+    return int(opts.prefix_refresh)
+
+
+def _prefix_axpy(P, B, alpha):
+    """``P + alpha*B`` in the solver dtype (``alpha``'s), rounded back to
+    P's storage dtype: JAX's ``(a + alpha*b).astype(a.dtype)``."""
+    return (P.to(alpha.dtype) + alpha * B.to(alpha.dtype)).to(P.dtype)
+
+
+def _alpha0_later(opts: LBFGSOptions, alpha_prev, one):
+    """The first trial step after iteration 0: 1, or under
+    ``ls_alpha_init="warm"`` ``min(1, ls_alpha_growth * alpha_prev)``."""
+    if opts.ls_alpha_init == "warm":
+        return torch.minimum(one, alpha_prev * opts.ls_alpha_growth)
+    return one
 
 
 class _LoopState(NamedTuple):
@@ -134,6 +185,7 @@ class _LoopState(NamedTuple):
     gnorm_h: torch.Tensor
     nf: int  # objective (forward) evaluations
     ng: int  # full-gradient evaluations
+    alpha_prev: torch.Tensor  # the previous iteration's step
     prefix: Any = ()  # carried LinePrefix state (the MLP's A = x@W1 + b1)
     syncs: int = 0  # host syncs of the line searches
 
@@ -173,7 +225,9 @@ def _init_loop_state(problem: Problem, opts: LBFGSOptions, x0, aux) -> _LoopStat
         hist=empty_history_state(opts.m, x0.shape[0], x0.dtype,
                                  pair_dtype=_PAIR_DTYPES[opts.pair_dtype], device=x0.device),
         loss_h=loss_h, gnorm_h=gnorm_h, nf=1, ng=1,
-        prefix=problem.line_prefix.init(x0, aux) if _use_prefix(problem, opts) else (),
+        alpha_prev=torch.ones((), dtype=x0.dtype, device=x0.device),
+        prefix=(_prefix_cast(opts)(problem.line_prefix.init(x0, aux))
+                if _use_prefix(problem, opts) else ()),
     )
 
 
@@ -199,15 +253,22 @@ def _make_va(problem: Problem, opts: LBFGSOptions):
     vag_carry_along)`` for direction p."""
     use_prefix = _use_prefix(problem, opts)
     carry_mode = _carry_mode(problem, opts)
+    cast = _prefix_cast(opts)
 
     def make_va(x, prefix, p, aux):
         if use_prefix:
             lp = problem.line_prefix
-            B = lp.direction(p, aux)
+            B = cast(lp.direction(p, aux))
             va = lp.restrict(prefix, B, x, p, aux)
             vag = (lp.vag_restrict(prefix, B, x, p, aux)
                    if opts.prefix_vag and lp.vag_restrict is not None else None)
-            vagc = lp.vag_restrict_carry(prefix, B, x, p, aux) if carry_mode else None
+            vagc = None
+            if carry_mode:
+                inner = lp.vag_restrict_carry(prefix, B, x, p, aux)
+
+                def vagc(alpha):
+                    f, g, P_new = inner(alpha)
+                    return f, g, cast(P_new)
             return B, va, vag, vagc
         if problem.line_fun is not None:
             return None, problem.line_fun(x, p, aux), None, None
@@ -241,6 +302,7 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
     lean = _lean(problem, opts)
     use_prefix = _use_prefix(problem, opts)
     carry_mode = _carry_mode(problem, opts)
+    refresh_n = _prefix_refresh_n(opts)
     _make_va_xp = _make_va(problem, opts)
 
     def make_va(s: _LoopState, p, aux):
@@ -256,7 +318,8 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
         hist = ring_reset(s.hist, nondescent)
 
         one = torch.ones_like(s.gnorm)
-        alpha0 = torch.minimum(one, 1.0 / s.gnorm) if s.k == 0 else one
+        alpha0 = (torch.minimum(one, 1.0 / s.gnorm) if s.k == 0
+                  else _alpha0_later(opts, s.alpha_prev, one))
         B, va, vag, vagc = make_va(s, p, aux)
         ls = armijo_quad_line_search(
             problem.value_and_grad, s.x, p, s.f, dg0, aux,
@@ -287,7 +350,7 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
         ls = wolfe_line_search(
             problem.value_and_grad, s.x, p, s.f, torch.dot(s.g, p), aux,
             c1=opts.c1, c2=opts.c2, shrink=opts.ls_shrink, max_iters=opts.ls_max_iters,
-            alpha0=1.0,
+            alpha0=_alpha0_later(opts, s.alpha_prev, torch.ones_like(s.gnorm)),
             value=problem.fun if lean else None,
             value_along=va if lean else None,
             vag_along=vag if lean else None,
@@ -319,13 +382,16 @@ def _make_body(problem: Problem, opts: LBFGSOptions):
         if carry_mode:
             prefix_new = carry
         elif use_prefix:  # the prefix is linear in w: P += alpha * B
-            prefix_new = s.prefix + alpha * B
+            prefix_new = _prefix_axpy(s.prefix, B, alpha)
         else:
             prefix_new = s.prefix
+        if use_prefix and refresh_n > 0 and (s.k + 1) % refresh_n == 0:
+            # re-anchor: the prefix recomputed from the fresh iterate
+            prefix_new = _prefix_cast(opts)(problem.line_prefix.init(x_new, aux))
         return _LoopState(
             k=s.k + 1, x=x_new, f=f_new, g=g_new, gnorm=gnorm_new, hist=hist,
             loss_h=loss_h, gnorm_h=gnorm_h, nf=s.nf + nf_add, ng=s.ng + ng_add,
-            prefix=prefix_new, syncs=s.syncs + trials,
+            alpha_prev=alpha, prefix=prefix_new, syncs=s.syncs + trials,
         )
 
     return body
@@ -353,6 +419,7 @@ class _State(NamedTuple):
     nf: torch.Tensor  # objective (forward) evaluations
     ng: torch.Tensor  # full-gradient evaluations
     alpha_prev: torch.Tensor  # the previous iteration's step
+    n_refresh: torch.Tensor  # int32: the prefix refreshes so far (not in JAX's state)
     prefix: Any = ()  # carried LinePrefix state (the MLP's A = x@W1 + b1)
 
 
@@ -368,8 +435,9 @@ def _init_state(problem: Problem, opts: LBFGSOptions, x0, aux) -> _State:
         hist=empty_history_state(opts.m, x0.shape[0], x0.dtype,
                                  pair_dtype=_PAIR_DTYPES[opts.pair_dtype], device=x0.device),
         loss_h=loss_h, gnorm_h=gnorm_h, nf=i32(1), ng=i32(1),
-        alpha_prev=torch.ones((), dtype=x0.dtype, device=x0.device),
-        prefix=problem.line_prefix.init(x0, aux) if _use_prefix(problem, opts) else (),
+        alpha_prev=torch.ones((), dtype=x0.dtype, device=x0.device), n_refresh=i32(0),
+        prefix=(_prefix_cast(opts)(problem.line_prefix.init(x0, aux))
+                if _use_prefix(problem, opts) else ()),
     )
 
 
@@ -390,6 +458,7 @@ def _make_resident_body(problem: Problem, opts: LBFGSOptions):
     lean = _lean(problem, opts)
     use_prefix = _use_prefix(problem, opts)
     carry_mode = _carry_mode(problem, opts)
+    refresh_n = _prefix_refresh_n(opts)
     make_va = _make_va(problem, opts)
 
     def armijo(s: _State, not_done, p, aux):
@@ -401,7 +470,8 @@ def _make_resident_body(problem: Problem, opts: LBFGSOptions):
         dg0 = torch.where(nondescent, -torch.dot(s.g, s.g), dg0)
         hist = ring_reset(s.hist, nondescent)
         one = torch.ones_like(s.gnorm)
-        alpha0 = torch.where(s.k == 0, torch.minimum(one, 1.0 / s.gnorm), one)
+        alpha0 = torch.where(s.k == 0, torch.minimum(one, 1.0 / s.gnorm),
+                             _alpha0_later(opts, s.alpha_prev, one))
         B, va, vag, vagc = make_va(s.x, s.prefix, p, aux)
         ls = armijo_quad_line_search_device(
             problem.value_and_grad, s.x, p, s.f, dg0, aux,
@@ -439,8 +509,10 @@ def _make_resident_body(problem: Problem, opts: LBFGSOptions):
                 assign(first, dst, new)
         later = not_done & (s.k > 0)
         with guard(later):
+            alpha0 = _alpha0_later(opts, s.alpha_prev, torch.ones_like(s.gnorm))
             ls, nf, ng = wolfe_with_counters(problem, opts, s.x, p, s.f, torch.dot(s.g, p), aux,
-                                             lean, value_along=va, vag_along=vag, live=later)
+                                             lean, value_along=va, vag_along=vag, live=later,
+                                             alpha0=alpha0)
             reeval = later & ~ls.evaluated
             with guard(reeval):  # re-evaluate at the search's last alpha
                 f, g = problem.value_and_grad(s.x + ls.alpha * p, aux)
@@ -468,9 +540,18 @@ def _make_resident_body(problem: Problem, opts: LBFGSOptions):
             if carry_mode:
                 prefix_new = carry
             elif use_prefix:  # the prefix is linear in w: P += alpha * B
-                prefix_new = s.prefix + alpha * B
+                prefix_new = _prefix_axpy(s.prefix, B, alpha)
             else:
                 prefix_new = s.prefix
+            if use_prefix and refresh_n > 0:
+                # re-anchor from the fresh iterate on (k + 1) % N == 0: an IF
+                # node on a device bool, so the GEMM runs only then
+                refresh = not_done & ((s.k + 1) % refresh_n == 0)
+                with guard(refresh):
+                    fresh = _prefix_cast(opts)(problem.line_prefix.init(x_new, aux))
+                    for dst, new in zip(tensors(prefix_new), tensors(fresh), strict=True):
+                        assign(refresh, dst, new)
+                    assign(refresh, s.n_refresh, s.n_refresh + 1)
             k_new = s.k + 1
             not_done_new = (k_new < opts.max_iters) & (gnorm_new >= opts.tol)
             # every new value is computed; now the state moves
@@ -525,7 +606,7 @@ def _solve_resident(problem: Problem, x0: Optional[torch.Tensor], aux, opts: LBF
     if capture and not like.is_cuda:
         raise ValueError(f"a captured solve needs CUDA tensors, got {like.device}")
     with full_f32(), torch.no_grad():
-        aux = prepared_aux(problem, aux)
+        aux = prepared(problem, aux)
         r = _resident(problem, opts, like, aux, capture)
         known = None
         if resume_state is None:
@@ -535,9 +616,8 @@ def _solve_resident(problem: Problem, x0: Optional[torch.Tensor], aux, opts: LBF
             r.load(resume_state)
             if _use_prefix(problem, opts):
                 # a derived field: recomputed from the restored iterate, never trusted
-                for dst, new in zip(tensors(r.state.prefix),
-                                    tensors(problem.line_prefix.init(r.state.x, aux)),
-                                    strict=True):
+                fresh = _prefix_cast(opts)(problem.line_prefix.init(r.state.x, aux))
+                for dst, new in zip(tensors(r.state.prefix), tensors(fresh), strict=True):
                     dst.copy_(new)
         (k, nf, ng, _), time_ms = drive_resident(
             r, chunk, opts.max_iters if iters is None else iters, _counters, known,
@@ -585,7 +665,7 @@ def _lbfgs_loop(problem: Problem, x0: torch.Tensor, aux: Any = (),
     opts = opts or LBFGSOptions()
     body = _make_body(problem, opts)
     with full_f32(), torch.no_grad():
-        aux = prepared_aux(problem, aux)
+        aux = prepared(problem, aux)
         s = _init_loop_state(problem, opts, x0, aux)
         while _loop_not_done(s, opts):
             s = body(s, aux)

@@ -29,6 +29,9 @@ table, its rows the steps' batches, taken by a gather (``index_select``)
 of b rows of x and y per step: contiguous rows ``t*b + arange(b)`` in
 sequential sampling (the device t makes them a gather where JAX's static
 slice fuses into the GEMM's read), the sampler's draws in random sampling.
+x may be uint8 (pixel-quantized, ``objectives.mlp.quantize_pixels``):
+each step gathers b uint8 rows, and the record reads the uint8 x, a
+quarter of f32's bytes; the objective upcasts them (JAX's u8 SGD rows).
 The draws come from ``sampler`` (by default
 :class:`~lbfgs_ffnn_torch.ops.sampling.SGDSampler`, keyed on the seed held
 in the device state: one capture serves every seed); tests pass JAX's
@@ -360,7 +363,9 @@ def sgd_streaming(
     per streamed batch, through the problem's ``fun_masked`` (the rows past
     a batch's count masked), with momentum and the lr decay at epoch
     boundaries, which the streamer's epoch label marks. For data that does
-    not live on the device whole; :func:`sgd` is the resident path.
+    not live on the device whole; :func:`sgd` is the resident path. A
+    streamer over uint8 x hands uint8 batches, read as :func:`sgd` reads
+    a uint8 x.
 
     On a CUDA ``w0`` each batch goes to the card by a ``non_blocking`` copy
     from the streamer's pinned buffer on a copy stream of its own, which the

@@ -48,8 +48,10 @@ class Problem(NamedTuple):
     All callables take ``(w, aux)``; ``hess(w, aux)`` is the dense Hessian
     when the objective supplies one; ``line_fun(w, p, aux)`` returns
     ``alpha -> fun(w + alpha*p, aux)`` computed with structure, and
-    ``line_prefix`` is its carried form. ``prepare(aux) -> aux`` runs once
-    per solve (identity when None).
+    ``line_prefix`` is its carried form. ``prepare(aux) -> aux`` makes what
+    the objective reads beside the raw data (the MLP's narrow input copy);
+    the solvers call it once per problem and data
+    (:func:`lbfgs_ffnn_torch.solvers.common.prepared`), identity when None.
     """
 
     fun: Callable[..., torch.Tensor]
@@ -121,11 +123,6 @@ class SolveResult(NamedTuple):
     n_hevals: Optional[int] = None  # Hessian-vector products
     n_matvecs: Optional[int] = None  # Krylov operator applications
     n_host_syncs: Optional[int] = None
-
-
-def prepared_aux(problem: Problem, aux: Any) -> Any:
-    """Apply the problem's one-time aux preparation (identity when absent)."""
-    return problem.prepare(aux) if problem.prepare is not None else aux
 
 
 def make_problem(

@@ -108,11 +108,15 @@ def test_launcher_runs_on_cuda_unless_told_otherwise():
 
 
 @pytest.mark.parametrize("solver,kw", [
-    ("sgd", {"fun_input_dtype": "uint8"}), ("slbfgs", {"compute_dtype": "bfloat16"}),
+    ("sgd", {"fun_input_dtype": "uint8", "compute_dtype": "bfloat16"}),
+    ("slbfgs", {"compute_dtype": "bfloat16"}),
     ("gd", {"compute_dtype": "bfloat16"}), ("lbfgs", {"compute_dtype": "bfloat16"}),
-    ("lbfgs", {"prefix_dtype": "bfloat16"}), ("lbfgs", {"grad_input_dtype": "bfloat16"}),
-    ("lbfgs", {"line_input_dtype": "uint8"}), ("gd", {"fun_input_dtype": "uint8"}),
-    ("lbfgs", {"ls_alpha_init": "warm"}), ("lbfgs", {"pair_dtype": "float16", "timed_chunks": 5}),
+    ("lbfgs", {"prefix_dtype": "bfloat16", "line_search": "armijo_batched"}),
+    ("lbfgs", {"grad_input_dtype": "bfloat16", "compute_dtype": "bfloat16"}),
+    ("lbfgs", {"line_input_dtype": "uint8", "pair_dtype": "float16"}),
+    ("gd", {"fun_input_dtype": "uint8", "compute_dtype": "float16"}),
+    ("lbfgs", {"ls_alpha_init": "warm", "pair_dtype": "float16"}),
+    ("lbfgs", {"pair_dtype": "float16", "timed_chunks": 5}),
     ("lbfgs", {"line_search": "armijo_batched"}), ("lbfgs", {"pair_dtype": "float16"}),
 ])
 def test_unported_options_raise(solver, kw, tmp_path):
@@ -385,3 +389,101 @@ def test_runner_default_rows_with_seeds(fashion_root, style):
         (256, 0.01, 5) if style == "cuda" else (256, 0.03, 5))
     if style == "cuda":
         assert (sgd_cfg.lr_decay, sgd_cfg.lr_decay_rate, sgd_cfg.tolerance) == (0.8, 40, 1e-3)
+
+
+_U8 = dict(grad_input_dtype="uint8", line_input_dtype="uint8", fun_input_dtype="uint8")
+
+
+@pytest.mark.parametrize("style,solver,extra", [
+    ("cuda", "lbfgs", dict(m_param=5, pair_dtype="bfloat16", prefix_dtype="bfloat16",
+                           ls_alpha_init="warm", **_U8)),
+    ("cuda", "lbfgs", dict(m_param=5, grad_input_dtype="bfloat16",
+                           line_input_dtype="bfloat16", prefix_dtype="bfloat16")),
+    ("cpu", "lbfgs", dict(m_param=5, ls_alpha_init="warm", ls_alpha_growth=4.0)),
+    ("cuda", "gd", dict(learning_rate=0.02, momentum=0.9, fun_input_dtype="uint8")),
+    ("cuda", "sgd", dict(learning_rate=0.05, momentum=0.9, batch_size=32, lr_decay=0.8,
+                         lr_decay_rate=4, fun_input_dtype="uint8")),
+])
+def test_traffic_fields_match_jax_launcher(style, solver, extra, tmp_path, monkeypatch):
+    """The traffic fields (the input copies, the bf16 prefix, warm alpha;
+    GD's and the cuda style's SGD's uint8 x) through both Launchers: the
+    same CSV, the same final weights, and the same options."""
+    monkeypatch.chdir(tmp_path)
+    jl, tl = _both(style)
+    kw = dict(max_iters=9 if solver == "sgd" else 20, tolerance=1e-12, log_interval=1,
+              reset_params=False, **extra)
+    rj = jl.train(solver, JConfig(name="J", **kw), verbose=False)
+    rt = tl.train(solver, UnifiedConfig(name="T", **kw), verbose=False)
+    hj, ht = j_read(rj.csv_path), read_history_csv(rt.csv_path)
+    assert ht.n == hj.n == int(rj.result.n_iters) > 0
+    np.testing.assert_allclose(ht.loss, hj.loss, rtol=1e-9)
+    np.testing.assert_allclose(ht.gnorm, hj.gnorm, rtol=1e-9)
+    np.testing.assert_allclose(tl.weights.numpy(), np.asarray(jl.weights), rtol=1e-8, atol=1e-10)
+    if solver == "lbfgs":
+        to, jo = tl._lbfgs_opts(UnifiedConfig(**kw)), jl._lbfgs_opts(JConfig(**kw))
+        assert all(getattr(to, f) == getattr(jo, f) for f in LBFGS_FIELDS)
+    if solver == "sgd":  # one quantized copy, reused
+        assert tl._stochastic_x(UnifiedConfig(**kw)) is tl._stochastic_x(UnifiedConfig(**kw))
+        assert tl._stochastic_x(UnifiedConfig(**kw)).dtype == torch.uint8
+
+
+LBFGS_FIELDS = ("max_iters", "tol", "m", "line_search", "ls_max_iters", "pair_dtype",
+                "prefix_dtype", "ls_alpha_init", "ls_alpha_growth")
+
+
+def test_traffic_problems_are_cached_and_slbfgs_refuses_fun_input(tmp_path):
+    """One problem per combination of input dtypes (the captured step keys on
+    it), and S-LBFGS refuses fun_input_dtype with the JAX Launcher's
+    ValueError; the defaults of the new fields are JAX's."""
+    jl, tl = _both("cpu")
+    tl.out_dir = tmp_path
+    c = UnifiedConfig(max_iters=2, **_U8)
+    assert tl._problem(c) is tl._problem(UnifiedConfig(**_U8))
+    assert tl._problem(c) is not tl._problem(UnifiedConfig())
+    for launcher, config in ((jl, JConfig), (tl, UnifiedConfig)):
+        with pytest.raises(ValueError, match="fun_input_dtype"):
+            launcher.train("slbfgs", config(max_iters=2, fun_input_dtype="uint8"), verbose=False)
+        with pytest.raises(ValueError):
+            launcher.train("sgd", config(max_iters=2, fun_input_dtype="bfloat16"), verbose=False)
+    for name in ("prefix_dtype", "grad_input_dtype", "line_input_dtype", "fun_input_dtype",
+                 "ls_alpha_init", "ls_alpha_growth"):
+        assert getattr(UnifiedConfig(), name) == getattr(JConfig(), name), name
+
+
+def test_runner_variant_flags(fashion_root, capsys):
+    """The JAX runner's variant flags: L-BFGS m=10 and m=100 rows with its
+    suffixes and options, the u8input GD and SGD rows; --bf16-compute and
+    --batched-ls print one line and exit non-zero."""
+    base = ["--dataset", "fashion", "--iters", "2", "--train-size", "32", "--data-root",
+            str(fashion_root), "--out-dir", str(fashion_root / "out"), "--device", "cpu"]
+    flags = ["--bf16-grad-input", "--bf16-prefix", "--bf16-line-input", "--bf16-all",
+             "--u8-input", "--u8-all", "--warm-alpha"]
+    runs = run_mnist.run_list(run_mnist.build_parser().parse_args(base + flags))
+    names = [c.name for _, c in runs]
+    suffixes = ["bf16gradin", "bf16prefix", "bf16lineinput", "bf16all", "u8input", "u8all",
+                "warmalpha", "u8warm"]
+    assert names == (["FASHION_GD", "FASHION_SGD", "FASHION_LBFGS_m10", "FASHION_LBFGS_m100"]
+                     + [f"FASHION_LBFGS_m{m}_{s}" for s in suffixes for m in (10, 100)]
+                     + ["FASHION_GD_u8input", "FASHION_SGD_u8input"])
+    by = {c.name: c for _, c in runs}
+    u8warm = by["FASHION_LBFGS_m10_u8warm"]
+    assert (u8warm.grad_input_dtype, u8warm.line_input_dtype, u8warm.fun_input_dtype,
+            u8warm.pair_dtype, u8warm.prefix_dtype, u8warm.ls_alpha_init) == (
+        "uint8", "uint8", "uint8", "bfloat16", "bfloat16", "warm")
+    assert by["FASHION_SGD_u8input"].fun_input_dtype == "uint8"
+    cpu = run_mnist.run_list(run_mnist.build_parser().parse_args(base + ["--style", "cpu",
+                                                                          "--u8-input"]))
+    assert [c.name for _, c in cpu][-1] == "FASHION_GD_u8input"  # no SGD row in the cpu style
+    done = run_mnist.main(base + ["--u8-all", "--warm-alpha", "--only", "u8"])
+    assert [c.name for _, c, _ in done] == [
+        "FASHION_LBFGS_m10_u8all", "FASHION_LBFGS_m100_u8all", "FASHION_LBFGS_m10_u8warm",
+        "FASHION_LBFGS_m100_u8warm", "FASHION_GD_u8input", "FASHION_SGD_u8input"]
+    for _, cfg, rep in done:
+        assert rep.result.n_iters >= 1 and bool(torch.isfinite(rep.result.final_loss))
+    capsys.readouterr()
+    for flag in ("--bf16-compute", "--batched-ls"):
+        with pytest.raises(SystemExit) as exc:
+            run_mnist.main(base + [flag])
+        assert exc.value.code != 0
+        out = capsys.readouterr().out.strip().splitlines()
+        assert len(out) == 1 and "not ported" in out[0]

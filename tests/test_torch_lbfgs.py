@@ -122,8 +122,12 @@ def test_cuda_impl_on_cpu_equals_plain():
 
 @pytest.mark.parametrize("name", ["ls_spec_k", "ls_alpha_growth"])
 def test_options_of_unported_branches_are_refused(name):
-    """Options read only by the batched search and warm alpha do not exist
-    here, so setting one fails instead of doing nothing."""
+    """Options read only by the batched search do not exist here, so setting
+    one fails instead of doing nothing; warm alpha's growth is ported with
+    JAX's default."""
+    if name == "ls_alpha_growth":
+        assert LBFGSOptions().ls_alpha_growth == JOptions().ls_alpha_growth == 8.0
+        return
     with pytest.raises(TypeError):
         LBFGSOptions(**{name: 1.0})
 
@@ -164,9 +168,12 @@ def test_stops_on_tol_and_pads_history():
 
 
 @pytest.mark.parametrize("kw", [
-    {"line_search": "wolfe", "ls_alpha_init": "warm"}, {"line_search": "armijo_batched"},
-    {"ls_alpha_init": "warm"}, {"two_loop_impl": "xla"}, {"two_loop_impl": "pallas"},
-    {"pair_dtype": "float16"}, {"prefix_dtype": "bfloat16"}, {"prefix_refresh": 16},
+    {"line_search": "wolfe", "ls_alpha_init": "warm", "two_loop_impl": "xla"},
+    {"line_search": "armijo_batched"},
+    {"ls_alpha_init": "warm", "line_search": "armijo_batched"}, {"two_loop_impl": "xla"},
+    {"two_loop_impl": "pallas"}, {"pair_dtype": "float16"},
+    {"prefix_dtype": "bfloat16", "pair_dtype": "float16"},
+    {"prefix_refresh": 16, "two_loop_impl": "pallas"},
 ])
 def test_unported_options_raise(kw):
     js, ts, w0, x, y = _problem("shallow")

@@ -135,8 +135,9 @@ def test_mlp_init_conventions():
 
 
 @pytest.mark.parametrize("kw", [
-    {"compute_dtype": "bfloat16"}, {"remat": True}, {"grad_input_dtype": "bfloat16"},
-    {"line_input_dtype": "uint8"}, {"fun_input_dtype": "uint8"},
+    {"compute_dtype": "bfloat16"}, {"remat": True},
+    {"compute_dtype": "bfloat16", "grad_input_dtype": "bfloat16"},
+    {"remat": True, "line_input_dtype": "uint8"}, {"remat": True, "fun_input_dtype": "uint8"},
 ])
 def test_unported_options_raise(kw):
     ts = tmlp.mlp_spec([12, 8, 3], ["relu", "linear"])
@@ -145,9 +146,13 @@ def test_unported_options_raise(kw):
 
 
 def test_uint8_input_not_ported():
+    """uint8 inputs are ported now (round(x*255), rescaled on the first
+    layer's output: the float read of k/255 to rounding); any other integer
+    input still raises."""
     ts = tmlp.mlp_spec([12, 8, 3], ["relu", "linear"])
-    w = torch.zeros(ts.n_params)
-    with pytest.raises(NotImplementedError):
-        tmlp.mlp_apply(ts, w, torch.zeros((2, 12), dtype=torch.uint8))
+    w = torch.linspace(-1.0, 1.0, ts.n_params, dtype=torch.float64)
+    xq = torch.arange(24, dtype=torch.uint8).reshape(2, 12) * 10
+    torch.testing.assert_close(tmlp.mlp_apply(ts, w, xq),
+                               tmlp.mlp_apply(ts, w, xq.double() / 255.0), rtol=1e-12, atol=0)
     with pytest.raises(ValueError):
         tmlp.mlp_apply(ts, w, torch.zeros((2, 12), dtype=torch.int32))

@@ -226,8 +226,11 @@ def test_run_burgers_smoke(tmp_path):
     assert set(rows["t"]) == {0.0, 0.5, 1.0, 1.5} and set(rows["type"]) == {0.0, 2.0}
     errs = burgers_validate.errors(str(out))
     assert sorted(errs) == [0.0, 0.5, 1.0] and all(e.shape == (101,) for e in errs.values())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        run_burgers.main(["--device", "cpu", "--warm-alpha"])
+    warm = run_burgers.main(["--device", "cpu", "--coarse", "--iters", "5", "--warm-alpha",
+                             "--out", str(out)])
+    assert warm["result"].n_iters == 5 and run_burgers.options(5, False, warm_alpha=True) \
+        == run_burgers.options(5, False)._replace(ls_alpha_init="warm")
+    assert float(warm["result"].final_loss) < float(warm["result"].loss_history[0])
 
 
 def test_run_oscillator_smoke(capsys):

@@ -260,7 +260,8 @@ def test_lbfgs_on_cpu_keeps_the_early_exit_loop():
 def test_chunked_refuses_what_it_does_not_run():
     _, (tp, tw, taux) = _mlp()
     with pytest.raises(NotImplementedError):
-        tl.lbfgs_chunked(tp, tw, taux, tl.LBFGSOptions(line_search="wolfe", ls_alpha_init="warm"))
+        tl.lbfgs_chunked(tp, tw, taux, tl.LBFGSOptions(line_search="armijo_batched",
+                                                       ls_alpha_init="warm"))
     with pytest.raises(NotImplementedError):
         tl.lbfgs_chunked(tp, tw, taux, _opts(tl.LBFGSOptions, "f32-ring"), mesh=object())
     with pytest.raises(ValueError):

@@ -124,11 +124,17 @@ def test_make_batch_problem_matches_jax():
 
 
 def test_mlp_batch_problem_refuses_unported_inputs():
+    """``compute_dtype`` still raises; a uint8 batch (ported) reads as the
+    float batch k/255 and a batch of another integer type raises."""
     with pytest.raises(NotImplementedError):
         tmlp.mlp_batch_problem(SPEC_T, compute_dtype="bfloat16")
     tp = tmlp.mlp_batch_problem(SPEC_T)
-    with pytest.raises(NotImplementedError):
-        tp.fun(_t(W0), torch.zeros((2, DIMS[0]), dtype=torch.uint8), _t(Y[:2]))
+    xq = torch.arange(2 * DIMS[0], dtype=torch.int64).reshape(2, DIMS[0]) % 256
+    np.testing.assert_allclose(
+        float(tp.fun(_t(W0), xq.to(torch.uint8), _t(Y[:2]))),
+        float(tp.fun(_t(W0), xq.double() / 255.0, _t(Y[:2]))), rtol=1e-12)
+    with pytest.raises(ValueError):
+        tp.fun(_t(W0), xq.to(torch.int32), _t(Y[:2]))
 
 
 # -- the sampler --------------------------------------------------------------
