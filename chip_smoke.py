@@ -6,11 +6,12 @@
 
 Phases, each printing its lines (any failure raises and exits non-zero):
   1. device   - refuses to run without CUDA; torch, CUDA, nvcc and card
-  2. build    - compiles lbfgs_ffnn_torch/csrc/two_loop.cu and
-                csrc/conditional.cu (CUDA graph IF nodes) for sm_90a, the
-                two nvcc runs together, and prints ptxas's report for every
-                kernel (K1 and its timestamped build, K2 at each group size
-                k, K3) and both pair types
+  2. build    - compiles lbfgs_ffnn_torch/csrc/two_loop.cu,
+                csrc/conditional.cu (CUDA graph IF nodes) and csrc/lstsq.cu
+                (GMRES's least squares) for sm_90a, the three nvcc runs
+                together, and prints ptxas's report for every kernel (K1 and
+                its timestamped build, K2 at each group size k, K3, both
+                pair types; the least-squares kernel in f32 and f64)
   3. kernel   - the cooperative kernel (K1, the compact form) against its
                 plain torch version on the m=10, n=101,770 f32 and bf16
                 rings: empty, partial, full and wrapped, clamp on and off;
@@ -145,11 +146,35 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 for x in f32, uint8 and bf16 (upcast); the deep u8 traffic
                 stack, 20 iterations through K2 (21 launches); the
                 runner's --u8-input GD and SGD rows, 10 iterations/epochs
- 16. result   - one JSON line with the three kernels' numbers (K1's launches
-                summed over its five paths, K2's over its four, each also
+ 16. suite    - BFGS and Newton on the resident driver: the deterministic
+                suite runner (lbfgs_ffnn_torch.experiments.
+                run_deterministic_suite: BFGS, L-BFGS m=16, BFGS+GMRES and
+                Newton on Rosenbrock n=4, Ackley n=3 and Rastrigin n=500,
+                5000 iterations, tol 1e-12) in f64, held to JAX's gates
+                (tests/test_solvers_analytic.py:69-101), and in f32 with
+                its BFGS+GMRES rows cut to 10 iterations (at tol 1e-12
+                f32 GMRES runs 10,000 cycles per BFGS iteration; every
+                other row 5000 iterations, Rastrigin n=500), its
+                L-BFGS row through K1 (launches = iterations + 1 capture per
+                row, counted on the device) and its BFGS+GMRES rows through
+                the least-squares kernel (csrc/lstsq.cu), held against its
+                plain version on full-rank and rank-deficient 21 x 20
+                Hessenberg matrices and timed beside it; Newton-CG
+                (cg_max_iters=50) and factor-form BFGS (CG, 200 iterations)
+                at MNIST width (784-128-10, N=60,000, f32), 10 iterations
+                each: ms/iter, HVPs or matvecs/iter, trials/iter, host syncs,
+                capture time, peak memory, captured = eager body bitwise;
+                dense BFGS (direct) and dense Newton (autodiff Hessian) on
+                the extended Rosenbrock at n = 8192, f64, 10 iterations,
+                and n = 8193 refused; every BFGS and Newton mode captured =
+                eager body bitwise on Rosenbrock n=4 (30 iterations), a
+                second solve capturing nothing
+ 17. result   - one JSON line with the kernels' numbers (K1's launches
+                summed over its six paths, K2's over its four, each also
                 by path, with the PINN ring's numbers; K2's with its group
                 size, K3's with its prefetch distance and its time at each
-                distance), then the last line {"ok": true, "device": {...}}
+                distance; the least-squares kernel's), then the last line
+                {"ok": true, "device": {...}}
 
 The L-BFGS solves of phases 7-10, 13 and 14 (Armijo and Wolfe), the
 S-LBFGS solves of phases 12 and 14 and the GD and SGD solves of phase 14
@@ -220,6 +245,13 @@ ERR_RATIO = 2.0        # kernel's f64-referenced error vs the plain f32 one's
 LOSS_GATE = 0.02       # final losses within 2% (the bench's quality gate)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
+F64_FLOPS = 67e12          # H100 SXM f64 peak: the tensor cores' IEEE f64 (NVIDIA's data sheet;
+                           # 34e12 outside them)
+SUITE_MF_ITERS = 10        # the MNIST-width Newton-CG and factor-BFGS solves
+SUITE_F32_GMRES_ITERS = 10  # the f32 suite's BFGS+GMRES rows (10,000 GMRES cycles an iteration)
+SUITE_DENSE_ITERS = 10     # the dense solves at n = DENSE_HESSIAN_LIMIT
+SUITE_CHECK_ITERS = 30     # Rosenbrock n = 4 solves held captured = eager body bitwise
+LSTSQ_REPS = 200           # timed calls of the least-squares kernel
 TIMED_CALLS = 200
 TIMED_CALLS_LARGE = 20  # per timing in the n = 1M, 2M and 4M rows
 L2_BYTES = 50e6            # H100 L2
@@ -292,13 +324,19 @@ def build_phase():
     from lbfgs_ffnn_torch.ops.cuda_two_loop import _lib
 
     t0 = time.perf_counter()
-    builds = _build.build_all(["two_loop", "conditional"])  # one nvcc each, together
+    from lbfgs_ffnn_torch.ops.cuda_lstsq import _lib as lstsq_lib
+
+    builds = _build.build_all(["two_loop", "conditional", "lstsq"])  # one nvcc each, together
     _lib()
     control._lib()
+    lstsq_lib()
     for name, b in builds.items():
         say("build", f"{b.path.name} from csrc/{name}.cu with {' '.join(_build.NVCC_FLAGS)} "
             f"in {b.seconds:.2f} s (compiled={b.compiled})")
-    say("build", f"both built in {time.perf_counter() - t0:.2f} s of wall time")
+    say("build", f"all three built in {time.perf_counter() - t0:.2f} s of wall time")
+    for line in builds["lstsq"].log.splitlines():
+        if "Used" in line or "spill" in line:
+            say("build", f"ptxas least squares: {line.split('ptxas info    : ')[-1].strip()}")
     built = builds["two_loop"]
     kind = None
     for line in built.log.splitlines():
@@ -2055,6 +2093,306 @@ def traffic_phase(torch, dev, profile: bool, mnist_root):
 
 
 
+def _same_solve(torch, a, b) -> bool:
+    """Two SolveResults bitwise equal: x, the histories (NaN where both are
+    NaN) and every counter."""
+    for f in ("x", "loss_history", "gnorm_history"):
+        u, v = getattr(a, f), getattr(b, f)
+        if bool(((u != v) & ~(torch.isnan(u) & torch.isnan(v))).any()):
+            return False
+    return all(getattr(a, c) == getattr(b, c)
+               for c in ("n_iters", "n_fevals", "n_gevals", "n_hevals", "n_matvecs"))
+
+
+def _events_ms(torch, fn, reps):
+    """ms per call of ``fn()`` over ``reps`` calls, CUDA events, after one
+    warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _jacobi_sweeps(H: np.ndarray) -> int:
+    """The sweeps the kernel's one-sided Jacobi SVD makes on ``H`` (f64), the
+    last one rotating nothing: its loop and threshold in numpy. Every sweep
+    visits all n (n - 1) / 2 column pairs, each three warp reductions in a
+    row, the kernel's chain of dependent steps."""
+    A = H.astype(np.float64).copy()
+    m, n = A.shape
+    tol = np.finfo(np.float64).eps * np.sqrt(m)
+    for sweep in range(60):  # kMaxSweeps
+        rotated = False
+        for p in range(n - 1):
+            for q in range(p + 1, n):
+                ap, aq = A[:, p].copy(), A[:, q].copy()
+                alpha, beta, gamma = ap @ ap, aq @ aq, ap @ aq
+                if gamma == 0 or abs(gamma) <= tol * np.sqrt(alpha) * np.sqrt(beta):
+                    continue
+                zeta = (beta - alpha) / (2 * gamma)
+                t = np.copysign(1 / (abs(zeta) + np.sqrt(1 + zeta * zeta)), zeta)
+                c = 1 / np.sqrt(1 + t * t)
+                A[:, p], A[:, q] = c * ap - c * t * aq, c * t * ap + c * aq
+                rotated = True
+        if not rotated:
+            return sweep + 1
+    return 60
+
+
+def _lstsq_kernel(torch, dev):
+    """The GMRES least-squares kernel against its plain version (the SVD
+    formula on the CPU in f64) on GMRES's 21 x 20 Hessenberg shape, full rank
+    and after a happy breakdown (rank 7: zero columns), f64 and f32; its
+    time beside the plain version's on the card, the QR library call's (the
+    same function where H has full rank) and its bound. Not counted: the
+    main path's launches are counted in the suite."""
+    from lbfgs_ffnn_torch.ops.cuda_lstsq import lstsq_min_norm, lstsq_plain
+
+    rng = np.random.default_rng(SEED)
+    m, n = 21, 20
+    cases = {}
+    for rank in (n, 7):
+        H = np.triu(rng.normal(size=(m, n)), -1)
+        if rank < n:
+            H[:, rank:] = 0.0
+            H[rank + 1:, :] = 0.0
+            H[rank, rank - 1] = 0.0
+        beta = np.zeros(m)
+        beta[0] = rng.normal()
+        cases[rank] = (H, beta)
+    worst = {}
+    for dtype in (torch.float64, torch.float32):
+        for rank, (H, beta) in cases.items():
+            Hd = torch.tensor(H, dtype=dtype, device=dev)
+            bd = torch.tensor(beta, dtype=dtype, device=dev)
+            y = lstsq_min_norm(Hd, bd).cpu().double()
+            ref = lstsq_plain(Hd.cpu().double(), bd.cpu().double())
+            plain_own = lstsq_plain(Hd.cpu(), bd.cpu()).double()
+            err = float((y - ref).abs().max())
+            err_plain = float((plain_own - ref).abs().max())
+            scale = float(ref.abs().max())
+            eps = torch.finfo(dtype).eps
+            ok = (err <= 1e-10 * scale if dtype == torch.float64
+                  else err <= 4 * err_plain + 10 * eps * scale)
+            check(ok and bool(torch.all(y[rank:] == 0)),
+                  f"lstsq kernel {dtype} rank {rank}: max |kernel - plain f64| {err:.3g} "
+                  f"(plain in {dtype}: {err_plain:.3g}), zero weights {y[rank:].tolist()}")
+            worst[(str(dtype).split(".")[-1], rank)] = (err, err_plain)
+    H, beta = cases[n]
+    Hd, bd = torch.tensor(H, device=dev), torch.tensor(beta, device=dev)
+    ms = _events_ms(torch, lambda: lstsq_min_norm(Hd, bd), LSTSQ_REPS)
+    plain_ms = _events_ms(torch, lambda: lstsq_plain(Hd, bd), 50)
+    library_ms = _events_ms(torch, lambda: torch.linalg.lstsq(Hd, bd[:, None]).solution, 50)
+    nbytes = (m * n + m + n) * 8
+    flops = 4 * m * n * n + 8 * n ** 3 + 2 * m * n + 2 * n * n  # R-SVD (Golub-Van Loan) + solve
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOPS * 1e3
+    bound_ms, bound_by = max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+    pairs = _jacobi_sweeps(H) * n * (n - 1) // 2
+    say("suite", "least-squares kernel (lstsq_min_norm_kernel, csrc/lstsq.cu) against the SVD "
+        "formula in f64: " + ", ".join(f"{d} rank {r}: {e:.3g} (plain in {d} {ep:.3g})"
+                                       for (d, r), (e, ep) in worst.items())
+        + f"; 21 x 20 f64: {ms * 1e3:.2f} us/call (CUDA events, {LSTSQ_REPS} calls), plain "
+        f"(torch.linalg.svd on the card) {plain_ms * 1e3:.2f} us, torch.linalg.lstsq (QR, full "
+        f"rank only) {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.4f} us ({bound_by}, "
+        f"f64 at {F64_FLOPS / 1e12:.0f} TFLOP/s); latency: {pairs} column pairs in a row "
+        f"({pairs // (n * (n - 1) // 2)} sweeps), {ms * 1e6 / pairs:.1f} ns per pair")
+    return {"name": "lstsq_min_norm", "route": "cuda", "source": "lbfgs_ffnn_torch/csrc/lstsq.cu",
+            "replaces": "jnp.linalg.lstsq in lbfgs_ffnn_tpu/ops/iterative.py:113 "
+                        "(no Pallas kernel; GMRES's least squares)",
+            "max_abs_err": max(e for e, _ in worst.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def suite_phase(torch, dev, profile: bool, mnist_root):
+    """BFGS and Newton on the resident driver: the deterministic suite runner
+    in f64 (held to JAX's gates) and f32 (K1 on its L-BFGS row, counted); the
+    matrix-free modes at MNIST width; the dense modes at the package's
+    ceiling n = DENSE_HESSIAN_LIMIT and its refusal above; every mode
+    captured = eager body bitwise; the least-squares kernel."""
+    import contextlib
+    import importlib
+    import io
+
+    from lbfgs_ffnn_torch.experiments import run_deterministic_suite as runner
+    from lbfgs_ffnn_torch.objectives.analytic import rosenbrock_problem, rosenbrock_start
+    from lbfgs_ffnn_torch.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn_torch.ops.cuda_lstsq import lstsq_min_norm
+    from lbfgs_ffnn_torch.ops.cuda_two_loop import COOPERATIVE, two_loop_cuda
+    from lbfgs_ffnn_torch.solvers.common import Resident, clear_graph_cache
+    from lbfgs_ffnn_torch.types import DENSE_HESSIAN_LIMIT
+
+    tb = importlib.import_module("lbfgs_ffnn_torch.solvers.bfgs")
+    tn = importlib.import_module("lbfgs_ffnn_torch.solvers.newton")
+    t_phase = time.perf_counter()
+    clear_graph_cache()
+    lstsq = _lstsq_kernel(torch, dev)
+
+    # (a) the suite runner, f64 then f32; the counts from 0 just before
+    _reset(two_loop_cuda.LAUNCHES)
+    lstsq_min_norm.LAUNCHES.reset()
+    c0 = Resident.captures
+    records, walls = {}, {}
+    f32_argv = ["--f32", "--gmres-max-iters", str(SUITE_F32_GMRES_ITERS)]
+    for prec, argv in (("f64", []), ("f32", f32_argv)):
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            records[prec] = runner.main(argv)
+        walls[prec] = time.perf_counter() - t0
+        for line in text.getvalue().splitlines():
+            say("suite", f"  [{prec}] {line}")
+    launches = dict(two_loop_cuda.LAUNCHES)
+    lstsq_launches = int(lstsq_min_norm.LAUNCHES)
+    captures = Resident.captures - c0
+    by = {(r.test, r.implementation): r for r in records["f64"]}
+    gates = []
+    for impl in ("BFGS", "LBFGS", "BFGS+GMRES", "Newton"):
+        r = by[("rosenbrock n=4", impl)]
+        gates.append((f"rosenbrock {impl}", r.final_gnorm <= 1e-10
+                      and r.distance_to_optimum <= 1e-8))
+        gates.append((f"ackley {impl}", by[("ackley n=3", impl)].final_gnorm <= 1e-9))
+    for impl in ("LBFGS", "Newton"):
+        gates.append((f"rastrigin {impl}", by[("rastrigin n=500", impl)].final_gnorm <= 1e-8))
+    failed = [g for g, ok in gates if not ok]
+    check(not failed, f"f64 suite rows outside JAX's gates (tests/test_solvers_analytic.py:"
+          f"69-101): {failed}")
+    lbfgs32 = [r for r in records["f32"] if r.implementation == "LBFGS"]
+    want_k1 = sum(r.n_iters for r in lbfgs32) + len(lbfgs32)  # + each row's capture
+    check(launches == {k: want_k1 * (k == COOPERATIVE) for k in launches},
+          f"suite: two-loop launches {launches} != the f32 L-BFGS rows' {want_k1} "
+          "iterations + captures through K1")
+    check(lstsq_launches > 0, "suite: the BFGS+GMRES rows never launched the lstsq kernel")
+    say("suite", f"f64 suite ({walls['f64']:.1f} s) within JAX's gates: Rosenbrock |g| <= 1e-10 "
+        f"and |x - 1| <= 1e-8, Ackley |g| <= 1e-9 (all four), Rastrigin n=500 |g| <= 1e-8 "
+        f"(L-BFGS, Newton); f32 suite (BFGS+GMRES rows cut to {SUITE_F32_GMRES_ITERS} iterations) "
+        f"{walls['f32']:.1f} s (not gated); K1 launches (device "
+        f"count) {launches[COOPERATIVE]} = the f32 L-BFGS rows' iterations + 1 capture each; "
+        f"lstsq kernel launches {lstsq_launches}; {captures} captures")
+    clear_graph_cache()
+
+    # (b) the matrix-free modes at MNIST width
+    aux, source = _data(torch, dev, mnist_root)
+    spec = mlp_spec(DIMS, ACTS)
+    problem = mlp_problem(spec)
+    w0 = mlp_init(spec, torch.Generator().manual_seed(SEED), torch.float32, device=dev)
+    rows = {
+        "Newton-CG": (tn.newton, tn._newton_resident_eager, tn.NewtonOptions(
+            max_iters=SUITE_MF_ITERS, tol=1e-12, hess_mode="hvp_cg", cg_max_iters=50)),
+        "factor BFGS": (tb.bfgs, tb._bfgs_resident_eager, tb.BFGSOptions(
+            max_iters=SUITE_MF_ITERS, tol=1e-12, storage="factors", linear_solver="cg",
+            solver_max_iters=200)),
+    }
+    ms = {}
+    for tag, (solve, eager, opts) in rows.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = Resident.captures
+        first = solve(problem, w0, aux, opts)
+        torch.cuda.synchronize()
+        capture_s, peak = Resident.last_capture_s, torch.cuda.max_memory_allocated() / 2**30
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = solve(problem, w0, aux, opts)
+        end.record()
+        end.synchronize()
+        ms[tag] = start.elapsed_time(end) / res.n_iters
+        check(Resident.captures == c0 + 1, f"{tag}: {Resident.captures - c0} captures, not 1")
+        check(_same_solve(torch, res, first) and _same_solve(torch, res, eager(problem, w0, aux,
+                                                                              opts)),
+              f"{tag}: the captured solve differs from the eager body (or from itself)")
+        bound = -(-res.n_iters // tn.RESIDENT_CHUNK) + 2
+        lh = res.loss_history.cpu().numpy()
+        check(res.n_iters == SUITE_MF_ITERS and bool(np.isfinite(lh).all()) and lh[-1] < lh[0]
+              and res.n_host_syncs <= bound,
+              f"{tag}: {res.n_iters} iterations, losses {lh[[0, -1]]}, host syncs "
+              f"{res.n_host_syncs} (limit {bound})")
+        work = (f"{res.n_hevals / res.n_iters:.1f} HVPs/iter" if res.n_hevals is not None
+                else f"{res.n_matvecs / res.n_iters:.1f} matvecs/iter")
+        trials = (res.n_fevals - 1 - res.n_iters) / res.n_iters  # lean: trials + 1 per iteration
+        say("suite", f"[{tag}] 784-128-10, N={N_TRAIN:,}, f32, {SUITE_MF_ITERS} iterations: "
+            f"{ms[tag]:.4f} ms/iter (CUDA events, the second solve), {work}, {trials:.2f} "
+            f"Wolfe trials/iter, host syncs {res.n_host_syncs} (limit {bound}), capture "
+            f"{capture_s:.3f} s, peak memory {peak:.2f} GiB; loss {lh[0]:.6g} -> {lh[-1]:.6g}; "
+            f"captured = eager body bitwise, the second solve captured nothing")
+        if profile and tag == "Newton-CG":
+            _profile(torch, lambda: solve(problem, w0, aux, opts))
+    del aux
+    clear_graph_cache()
+
+    # (c) the dense modes at the package's ceiling
+    n = DENSE_HESSIAN_LIMIT
+    x0 = rosenbrock_start(n, torch.float64, dev)
+    dense = {"dense BFGS direct": (tb.bfgs, rosenbrock_problem(), tb.BFGSOptions(
+                 max_iters=SUITE_DENSE_ITERS, tol=1e-12)),
+             "dense Newton, autodiff Hessian": (tn.newton, rosenbrock_problem(analytic=False),
+                                                tn.NewtonOptions(max_iters=SUITE_DENSE_ITERS,
+                                                                 tol=1e-12))}
+    for tag, (solve, prob, opts) in dense.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        solve(prob, x0, opts=opts)
+        capture_s = Resident.last_capture_s
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = solve(prob, x0, opts=opts)
+        end.record()
+        end.synchronize()
+        ms[tag] = start.elapsed_time(end) / res.n_iters
+        lh = res.loss_history.cpu().numpy()
+        check(res.n_iters == SUITE_DENSE_ITERS and bool(np.isfinite(lh).all()) and lh[-1] < lh[0],
+              f"{tag}: {res.n_iters} iterations, losses {lh[[0, -1]]}")
+        say("suite", f"[{tag}] extended Rosenbrock n={n}, f64, {res.n_iters} iterations: "
+            f"{ms[tag]:.4f} ms/iter (CUDA events, the second solve), capture {capture_s:.3f} s, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss "
+            f"{lh[0]:.6g} -> {lh[-1]:.6g}")
+        clear_graph_cache()
+    try:
+        tn.newton(rosenbrock_problem(analytic=False), rosenbrock_start(n + 1, torch.float64, dev),
+                  opts=tn.NewtonOptions(max_iters=2))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "hvp_cg" in refused,
+          f"n = {n + 1}: the default dense Hessian was not refused ({refused})")
+    say("suite", f"n = {n + 1}: refused ({refused[:70]}...)")
+
+    # (d) every mode captured = eager body, bitwise, on Rosenbrock n = 4
+    modes = [("bfgs", k, dict(v)) for k, v in (
+        ("dense-direct", {}), ("dense-cg", {"linear_solver": "cg"}),
+        ("dense-gmres", {"linear_solver": "gmres"}),
+        ("factors-cg", {"storage": "factors", "linear_solver": "cg"}),
+        ("factors-gmres", {"storage": "factors", "linear_solver": "gmres"}))]
+    modes += [("newton", "dense", {}), ("newton", "hvp_cg", {"hess_mode": "hvp_cg"})]
+    x4 = rosenbrock_start(4, torch.float64, dev)
+    held = []
+    for kind, mode, kw in modes:
+        mod = tb if kind == "bfgs" else tn
+        solve = mod.bfgs if kind == "bfgs" else mod.newton
+        eager = mod._bfgs_resident_eager if kind == "bfgs" else mod._newton_resident_eager
+        Options = mod.BFGSOptions if kind == "bfgs" else mod.NewtonOptions
+        opts = Options(max_iters=SUITE_CHECK_ITERS, tol=1e-14, **kw)
+        prob = rosenbrock_problem()  # one problem: the graph cache keys on it
+        c0 = Resident.captures
+        cap = solve(prob, x4, opts=opts)
+        again = solve(prob, x4, opts=opts)
+        check(Resident.captures == c0 + 1, f"{kind} {mode}: the second solve captured again")
+        check(_same_solve(torch, cap, eager(prob, x4, opts=opts))
+              and _same_solve(torch, cap, again),
+              f"{kind} {mode}: captured != eager body (bitwise)")
+        held.append(f"{kind} {mode} ({cap.n_iters} it)")
+    say("suite", f"captured = eager body bitwise (x, histories, counters), Rosenbrock n=4 f64, "
+        f"{SUITE_CHECK_ITERS} iterations at most, one capture each: " + ", ".join(held))
+    clear_graph_cache()
+    say("suite", f"phase time {time.perf_counter() - t_phase:.1f} s")
+    lstsq["launches"] = lstsq_launches
+    return {"K1": launches[COOPERATIVE], "lstsq": lstsq, "ms_iter": ms}
+
+
 def _stream_split(torch, dev, bp, w0, x_h, y_h, x, y) -> dict:
     """ms per step, host clock, over one epoch's batches, of each part of a
     ``sgd_streaming`` step alone: the stream's ``next()`` (its producer
@@ -2161,6 +2499,7 @@ def main() -> None:
     pinn = pinn_phase(torch, dev, args.profile)
     fo = first_order_phase(torch, dev, args.profile, args.mnist_root)
     traffic = traffic_phase(torch, dev, args.profile, args.mnist_root)
+    suite = suite_phase(torch, dev, args.profile, args.mnist_root)
     runner1, runner2 = fo["runner"].get(COOPERATIVE, 0), fo["runner"].get(STREAMING, 0)
 
     def entry(name, impl, replaces, launches, worst, m, n):
@@ -2182,12 +2521,14 @@ def main() -> None:
     k1_pinn, k1_ring = pinn["K1"]
     k2_pinn, k2_ring = pinn["K2"]
     k1 = entry("two_loop_cooperative", COOPERATIVE, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:173",
-               launches1r + launches_sl + k1_pinn + runner1 + traffic["K1"], worst1, M, n)
+               launches1r + launches_sl + k1_pinn + runner1 + traffic["K1"] + suite["K1"],
+               worst1, M, n)
     # K1 and K2 run on several main paths, each counted from 0 just before its
     # solve; their PINN ring shapes are timed in the pinn phase
     k1["launches_by_path"] = {"resident L-BFGS": launches1r, "stochastic S-LBFGS": launches_sl,
                               "PINN oscillator": k1_pinn, "runner MNIST": runner1,
-                              "traffic variants": traffic["K1"]}
+                              "traffic variants": traffic["K1"],
+                              "deterministic suite": suite["K1"]}
     k1["pinn_ring"] = k1_ring
     k2 = entry("two_loop_streaming", STREAMING, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:81",
                launches2 + k2_pinn + runner2 + traffic["K2"], worst2, M_DEEP,
@@ -2200,6 +2541,7 @@ def main() -> None:
         k2,
         entry("two_loop_blocked", BLOCKED, "lbfgs_ffnn_tpu/ops/pallas_two_loop.py:230",
               launches3, worst3, M_LARGE, N_LARGE),
+        suite["lstsq"],
     ]
     say("result", f"{smi}; MNIST solve ms/iter: cuda {ms_iter['cuda']:.4f}, plain "
         f"{ms_iter['plain']:.4f}; resident MNIST ms/iter: "
@@ -2220,6 +2562,7 @@ def main() -> None:
         + "; traffic variants ms/iter: " + ", ".join(f"{k} {v:.4f}"
                                                      for k, v in traffic["ms_iter"].items())
         + "; GEMM pair us: " + ", ".join(f"{k} {v:.1f}" for k, v in traffic["pair"].items())
+        + "; BFGS/Newton ms/iter: " + ", ".join(f"{k} {v:.4f}" for k, v in suite["ms_iter"].items())
         + f"; whole script {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

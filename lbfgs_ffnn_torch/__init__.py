@@ -8,19 +8,23 @@ loaders, the MLP objective with its carried line prefix, the analytic
 objectives, the Armijo and Wolfe line searches, the curvature ring with f32
 or bf16 pairs, the two-loop recursion as plain torch and as three
 hand-written Hopper kernels with their size dispatch, the L-BFGS solver with
-both searches, gradient descent with its three branches, SGD (resident
-and streamed, with the prefetching batch streamer), S-LBFGS with its batch
+both searches, BFGS (dense and factor storage; direct, CG and GMRES
+solves) and damped Newton (dense and Newton-CG) with the counted CG and
+GMRES solvers and the autodiff dense Hessian, gradient descent with its
+three branches, SGD (resident and streamed, with the prefetching batch
+streamer), S-LBFGS with its batch
 problem and its device-side sampler, the Burgers and oscillator PINNs with
 their runners and the FD oracle, the recorder, the launcher, the MNIST
-runner, the harness and the large-n two-loop diagnostic).
+runner, the harness with the deterministic suite runner and the large-n
+two-loop diagnostic).
 """
 
 from lbfgs_ffnn_torch.types import (
     BatchProblem, Problem, SolveResult, make_batch_problem, make_problem,
 )
 from lbfgs_ffnn_torch.solvers import (
-    GDOptions, LBFGSOptions, SGDOptions, SLBFGSOptions, gradient_descent, lbfgs, sgd, slbfgs,
-    slbfgs_chunked,
+    BFGSOptions, GDOptions, LBFGSOptions, NewtonOptions, SGDOptions, SLBFGSOptions, bfgs,
+    gradient_descent, lbfgs, newton, sgd, slbfgs, slbfgs_chunked,
 )
 
 __version__ = "0.1.0"
@@ -35,6 +39,10 @@ __all__ = [
     "gradient_descent",
     "LBFGSOptions",
     "lbfgs",
+    "BFGSOptions",
+    "bfgs",
+    "NewtonOptions",
+    "newton",
     "SGDOptions",
     "sgd",
     "SLBFGSOptions",

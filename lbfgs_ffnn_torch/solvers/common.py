@@ -16,7 +16,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from lbfgs_ffnn_torch.ops.control import Graph, capture, host_reads
+from lbfgs_ffnn_torch.ops.control import Graph, assign, capture, guard, host_reads
 from lbfgs_ffnn_torch.ops.linesearch import wolfe_line_search_device
 from lbfgs_ffnn_torch.types import SolveResult
 
@@ -133,6 +133,24 @@ def wolfe_with_counters(problem, opts, x, p, f0, dg0, aux, lean: bool, *, value_
         return ls, ls.n_trials + 1, torch.ones_like(ls.n_trials)
     nf = ls.n_trials + (~ls.evaluated).to(torch.int32)
     return ls, nf, nf
+
+
+def wolfe_step(problem, opts, lean: bool, x, f, g, p, aux, live):
+    """One Wolfe search along ``p`` from ``(x, f, g)`` inside the guard
+    ``live``, as the JAX BFGS and Newton iterations take it: lean trials
+    through ``problem.line_fun`` when it has one, the search's evaluation
+    at the accepted step reused, and a fresh value-and-gradient at its last
+    step (a guard) where it ended unevaluated. Returns ``(alpha, f_new,
+    g_new, nf_add, ng_add)``, device tensors."""
+    va = problem.line_fun(x, p, aux) if lean and problem.line_fun is not None else None
+    ls, nf_add, ng_add = wolfe_with_counters(problem, opts, x, p, f, torch.dot(g, p), aux, lean,
+                                             value_along=va, live=live)
+    reeval = live & ~ls.evaluated
+    with guard(reeval):
+        f_re, g_re = problem.value_and_grad(x + ls.alpha * p, aux)
+        assign(reeval, ls.f_new, f_re)
+        assign(reeval, ls.g_new, g_re)
+    return ls.alpha, ls.f_new, ls.g_new, nf_add, ng_add
 
 
 def drive_chunks(run_chunk, state, args, total, counter, done, callback=None, pipeline=True):
@@ -355,6 +373,28 @@ def drive_resident(r: Resident, chunk: int, total: int, counters: Callable,
         callback=cb, pipeline=pipeline,
     )
     return last.values(), time_ms
+
+
+def solve_resident(key: tuple, body: Callable, state, not_done_of: Callable, counters: Callable,
+                   known: tuple, total: int, *, chunk: int, capture: bool):
+    """One solve of a single-body iteration on the resident driver: the
+    step cached under ``key`` and captured (``capture``, CUDA tensors only)
+    or a fresh eager one, loaded with ``state`` and driven ``chunk``
+    iterations per host read until ``total`` or its stop (chunk c + 1
+    enqueued before the host reads chunk c when captured). ``known`` are the
+    starting counters and ``not_done``. Returns ``(values, resident)``,
+    ``values`` the last read of ``(*counters(state), not_done)``."""
+    device = tensors(state)[0].device
+    if capture and device.type != "cuda":
+        raise ValueError(f"a captured solve needs CUDA tensors, got {device}")
+
+    def make():
+        return Resident([body], clone(state), not_done_of, capture)
+
+    r = cached_resident(key, make) if capture else make()
+    r.load(state)
+    values, _ = drive_resident(r, chunk, total, counters, known, pipeline=capture)
+    return values, r
 
 
 RESIDENT_CACHE_SIZE = 8  # captured steps kept; each holds a memory pool

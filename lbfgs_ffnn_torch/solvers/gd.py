@@ -37,7 +37,7 @@ from lbfgs_ffnn_torch.ops.control import assign, guard
 from lbfgs_ffnn_torch.ops.linesearch import wolfe_line_search
 from lbfgs_ffnn_torch.solvers.common import (
     Resident, cached_resident, data_key, drive_resident, finalize, full_f32, init_history,
-    lean_gate, prepared, record, record_at, wolfe_with_counters,
+    lean_gate, prepared, record, record_at, wolfe_step,
 )
 from lbfgs_ffnn_torch.types import Problem, SolveResult
 
@@ -102,20 +102,11 @@ def _make_resident_body(problem: Problem, opts: GDOptions):
         with guard(not_done):
             v = s.v
             if _wolfe(opts):
-                p = -s.g
-                va = problem.line_fun(s.x, p, aux) if lean and problem.line_fun else None
-                ls, nf_add, ng_add = wolfe_with_counters(
-                    problem, opts, s.x, p, s.f, torch.dot(s.g, p), aux, lean, value_along=va,
-                    live=not_done)
-                x_new = s.x - ls.alpha * s.g
                 # the search's evaluation at the accepted point is reused;
                 # only an exhausted search pays a fresh one
-                reeval = not_done & ~ls.evaluated
-                with guard(reeval):
-                    f, g = problem.value_and_grad(x_new, aux)
-                    assign(reeval, ls.f_new, f)
-                    assign(reeval, ls.g_new, g)
-                f_new, g_new = ls.f_new, ls.g_new
+                alpha, f_new, g_new, nf_add, ng_add = wolfe_step(problem, opts, lean, s.x, s.f,
+                                                                 s.g, -s.g, aux, not_done)
+                x_new = s.x - alpha * s.g
             else:
                 if opts.momentum > 0.0:
                     v = opts.momentum * s.v - opts.step_size * s.g

@@ -6,12 +6,13 @@ default gradient comes from ``torch.func.grad_and_value`` where the JAX
 package uses ``jax.value_and_grad``. ``aux`` is a tuple of extra operands
 (e.g. the training set ``(x, y)``).
 
-Ported so far: what the L-BFGS paths use, ``Problem.hess`` in JAX's field
-order (the analytic objectives supply their dense Hessians),
-``Problem.hvp`` (forward over reverse), and the stochastic solvers'
-:class:`BatchProblem` with :func:`make_batch_problem`. The default autodiff
-dense Hessian is not ported yet: without a ``hess`` argument
-``Problem.hess`` is None.
+``Problem.hess`` is the dense Hessian: the objective's own where it
+supplies one (the analytic objectives do), else the autodiff default of
+:func:`make_problem`, ``torch.func.hessian`` of ``fun`` where JAX uses
+``jax.hessian``, which refuses more than :data:`DENSE_HESSIAN_LIMIT`
+parameters before anything of size n^2 is allocated. ``Problem.hvp`` is
+forward over reverse; the stochastic solvers' :class:`BatchProblem` comes
+from :func:`make_batch_problem`.
 """
 
 from __future__ import annotations
@@ -19,6 +20,11 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+
+# Largest parameter count for which make_problem's default dense Hessian is
+# allowed to materialize (8192^2 f64 = 537 MB), as in the JAX package. Larger
+# problems supply an explicit ``hess`` or use matrix-free Newton-CG.
+DENSE_HESSIAN_LIMIT = 8192
 
 
 class LinePrefix(NamedTuple):
@@ -135,8 +141,8 @@ def make_problem(
 ) -> Problem:
     """Build a :class:`Problem` from a scalar objective ``fun(w, aux)``, with
     the parameters in the JAX package's order. Analytic ``grad``/``hess``
-    may be supplied; the gradient defaults to ``torch.func`` autodiff and
-    ``hess`` stays None when not given."""
+    may be supplied; otherwise both come from ``torch.func`` autodiff, the
+    dense Hessian only up to :data:`DENSE_HESSIAN_LIMIT` parameters."""
     if grad is None:
         grad = torch.func.grad(fun)
         _grad_and_value = torch.func.grad_and_value(fun)
@@ -148,6 +154,25 @@ def make_problem(
         def value_and_grad(w, aux=(), _f=fun, _g=grad):
             return _f(w, aux), _g(w, aux)
 
+    if hess is None:
+        _dense_hess = torch.func.hessian(fun)
+
+        def hess(w, aux=(), _h=_dense_hess):
+            # Refuse before anything n^2 is allocated: an MLP's 101k
+            # parameters would need a 41 GB f32 Hessian. The reference's
+            # Newton likewise requires an explicit HessFun
+            # (src/minimizer/newton.hpp:25).
+            n = int(w.shape[0])
+            if n > DENSE_HESSIAN_LIMIT:
+                raise ValueError(
+                    f"default dense torch.func.hessian refused for n={n} > "
+                    f"{DENSE_HESSIAN_LIMIT} parameters (would materialize an "
+                    f"n^2 = {n * n:,}-element matrix). Pass an analytic/"
+                    "structured `hess` to make_problem, or use the "
+                    "matrix-free Newton-CG path: NewtonOptions(hess_mode="
+                    "'hvp_cg') solves (H + mu I) p = -g with CG over exact "
+                    "Hessian-vector products (Problem.hvp) and never forms H.")
+            return _h(w, aux)
     if line_fun is None and line_prefix is not None:
         # The per-call restriction is derivable from the carried protocol.
         def line_fun(w, p, aux, _lp=line_prefix):

@@ -45,13 +45,13 @@ def test_objective_matches_jax(name, n):
 
 @pytest.mark.parametrize("name", ["rosenbrock", "ackley", "rastrigin"])
 def test_autodiff_problem_matches_analytic(name):
-    """``analytic=False`` takes the gradient from torch.func, as JAX's does
-    from jax.grad."""
+    """``analytic=False`` takes the gradient and the dense Hessian from
+    torch.func, as JAX's does from jax.grad and jax.hessian."""
     w = torch.tensor(np.random.default_rng(3).normal(size=6))
     auto, exact = getattr(ta, f"{name}_problem")(False), getattr(ta, f"{name}_problem")()
-    assert auto.hess is None
-    np.testing.assert_allclose(auto.grad(w, ()).numpy(), exact.grad(w, ()).numpy(), rtol=1e-12,
-                               atol=1e-12)
+    for field in ("grad", "hess"):
+        np.testing.assert_allclose(getattr(auto, field)(w, ()).numpy(),
+                                   getattr(exact, field)(w, ()).numpy(), rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -137,3 +137,106 @@ def test_harness_matches_jax():
         assert rt.device == "cpu" and rt.elapsed_s > 0
     assert [r.status for r in ts.records] == ["global-min", "stationary"]
     assert th.classify(1.0, np.zeros(2), None) == jh.classify(1.0, np.zeros(2), None)
+
+
+# (test, implementation) rows whose stop the two libraries' f64 rounding
+# decides: Ackley's slow L-BFGS tail, and Rastrigin from (+4, -4), whose
+# Newton and L-BFGS steps reach a loss flat to its last bit (~796) where the
+# Wolfe test compares values one ulp apart (ROADMAP, "Differences that are
+# not faults"). Their statuses agree; their n_iters within ROUNDING_ITERS.
+ROUNDING_ROWS = {("ackley n=3", "LBFGS"), ("rastrigin n=50", "LBFGS"),
+                 ("rastrigin n=50", "Newton")}
+ROUNDING_ITERS = 3
+
+
+def test_deterministic_suite_matches_jax_harness():
+    """The suite's four implementations (BFGS, L-BFGS m = 16, BFGS+GMRES,
+    Newton) on its three cases at reduced size (Rastrigin n = 50,
+    max_iters 200, tol 1e-9: JAX's own gate for Rastrigin) through both
+    harnesses: the same statuses, and the same n_iters wherever the stop is
+    not decided by rounding."""
+    from lbfgs_ffnn_tpu import harness as jh
+    from lbfgs_ffnn_tpu.solvers import (
+        BFGSOptions as JB, NewtonOptions as JN, bfgs as j_bfgs, newton as j_newton,
+    )
+    from lbfgs_ffnn_torch import harness as th
+    from lbfgs_ffnn_torch.solvers import BFGSOptions, NewtonOptions, bfgs, newton
+
+    kw = dict(max_iters=200, tol=1e-9)
+    suites = {}
+    for lib, h, mod, B, L, N, b, l, nt, extra in (
+            ("jax", jh, ja, JB, JOptions, JN, j_bfgs, j_lbfgs, j_newton, {}),
+            ("torch", th, ta, BFGSOptions, LBFGSOptions, NewtonOptions, bfgs, lbfgs, newton,
+             {"two_loop_impl": "plain"})):
+        s = h.TestSuite()
+        s.add_implementation("BFGS", lambda p, x, B=B, b=b: b(p, x, opts=B(**kw)))
+        s.add_implementation("LBFGS", lambda p, x, L=L, l=l, e=extra: l(p, x, opts=L(m=16, **kw,
+                                                                                    **e)))
+        s.add_implementation("BFGS+GMRES", lambda p, x, B=B, b=b: b(
+            p, x, opts=B(linear_solver="gmres", **kw)))
+        s.add_implementation("Newton", lambda p, x, N=N, nt=nt: nt(p, x, opts=N(**kw)))
+        s.add_test(h.TestCase("rosenbrock n=4", mod.rosenbrock_problem(), _start("rosenbrock", 4,
+                                                                                  lib),
+                              expected_min=np.ones(4), gtol=1e-8))
+        s.add_test(h.TestCase("ackley n=3", mod.ackley_problem(), _start("ackley", 3, lib),
+                              expected_min=np.zeros(3), gtol=1e-8))
+        s.add_test(h.TestCase("rastrigin n=50", mod.rastrigin_problem(),
+                              _start("rastrigin", 50, lib), gtol=1e-7))
+        suites[lib] = s.run(verbose=False)
+    assert len(suites["torch"]) == 12
+    for rj, rt in zip(suites["jax"], suites["torch"]):
+        row = (rt.test, rt.implementation)
+        assert row == (rj.test, rj.implementation) and rt.status == rj.status, row
+        if row in ROUNDING_ROWS:
+            assert abs(rt.n_iters - rj.n_iters) <= ROUNDING_ITERS, row
+        else:
+            assert rt.n_iters == rj.n_iters, row
+    assert {r.status for r in suites["torch"]} == {"global-min", "stationary"}
+
+
+def test_suite_runner_runs_on_the_cpu(capsys):
+    """``python -m lbfgs_ffnn_torch.experiments.run_deterministic_suite
+    --device cpu --quick`` end to end: 12 runs, each line printed, the f64
+    L-BFGS row on the plain two-loop; without a card the default device
+    raises."""
+    from lbfgs_ffnn_torch.experiments import run_deterministic_suite as runner
+
+    records = runner.main(["--device", "cpu", "--quick"])
+    out = capsys.readouterr().out
+    assert "two_loop_impl='plain'" in out
+    assert len(records) == 12 and len([ln for ln in out.splitlines() if ln.startswith("[")]) == 12
+    assert all(r.device == "cpu" and r.n_iters > 0 for r in records)
+    statuses = {(r.test, r.implementation): r.status for r in records}
+    assert statuses[("ackley n=3", "BFGS")] == "stationary"  # converged in 8 iterations
+    assert statuses[("rastrigin n=50", "BFGS")] == "stationary"
+    assert statuses[("rosenbrock n=4", "Newton")] == "not-converged"  # needs 26 of the 20
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            runner.main([])
+
+
+def test_suite_runner_cuts_only_the_gmres_rows(monkeypatch):
+    """``--gmres-max-iters N`` (the card's f32 run) sets max_iters N on the
+    BFGS+GMRES rows and nothing else: every other row keeps the suite's 5000
+    iterations, Rastrigin its n = 500. Each solve is recorded, then run one
+    iteration, so the full-size suite stays cheap here."""
+    from lbfgs_ffnn_torch.experiments import run_deterministic_suite as runner
+
+    seen = []
+
+    def recording(name, solve):
+        def run(p, x0, opts):
+            seen.append((name, getattr(opts, "linear_solver", None), opts.max_iters,
+                         x0.shape[0], getattr(opts, "two_loop_impl", None)))
+            return solve(p, x0, opts=opts._replace(max_iters=1))
+        return run
+
+    for name in ("bfgs", "lbfgs", "newton"):
+        monkeypatch.setattr(runner, name, recording(name, getattr(runner, name)))
+    records = runner.main(["--device", "cpu", "--gmres-max-iters", "7"])
+    assert len(records) == len(seen) == 12
+    assert sorted({n for *_, n, _ in seen}) == [3, 4, 500]
+    for name, solver, iters, _, impl in seen:
+        assert iters == (7 if solver == "gmres" else runner.MAX_ITERS), (name, solver, iters)
+        assert impl == ("plain" if name == "lbfgs" else None)
+    assert sum(solver == "gmres" for _, solver, *_ in seen) == 3
