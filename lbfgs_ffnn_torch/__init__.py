@@ -16,7 +16,11 @@ streamer), S-LBFGS with its batch
 problem and its device-side sampler, the Burgers and oscillator PINNs with
 their runners and the FD oracle, the recorder, the launcher, the MNIST
 runner, the harness with the deterministic suite runner and the large-n
-two-loop diagnostic).
+two-loop diagnostic), checkpoint/resume of any solver state
+(``checkpoint``), the out-of-core path (``data.outofcore``: the
+``ChunkStore`` in pinned host memory, its problems, ``slbfgs(store=)`` and
+the hand-written row-gather kernel), the utilities (``utils``: diagnostics
+and a profiler trace) and the ``models`` alias of the objectives.
 """
 
 from lbfgs_ffnn_torch.types import (

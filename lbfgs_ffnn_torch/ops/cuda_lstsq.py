@@ -57,17 +57,19 @@ class LaunchCount:
     """The kernel's launches, counted on the device (an int32 per device,
     one added by each launch, so replays of a captured launch count as
     eager ones do). ``int(count)`` reads it (a host sync); ``reset()`` sets
-    it to 0."""
+    it to 0. ``what`` names the kernel's wrapper in the error a first
+    launch under capture raises."""
 
-    def __init__(self):
+    def __init__(self, what: str = "lstsq_min_norm"):
         self._device: dict[int, torch.Tensor] = {}
+        self._what = what
 
     def counter(self, device: torch.device) -> torch.Tensor:
         idx = device.index if device.index is not None else torch.cuda.current_device()
         if idx not in self._device:
             if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("the launch counter is made by an eager launch; capture "
-                                   "lstsq_min_norm only after it has run on the device")
+                raise RuntimeError(f"the launch counter is made by an eager launch; capture "
+                                   f"{self._what} only after it has run on the device")
             self._device[idx] = torch.zeros(1, dtype=torch.int32,
                                             device=torch.device("cuda", idx))
         return self._device[idx]

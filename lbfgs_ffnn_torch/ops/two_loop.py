@@ -271,7 +271,10 @@ def two_loop_compact(
 
     last = torch.clamp(c - 1, min=0)
     y_last = Yl.index_select(0, last.view(1))[0]
-    gamma = _gamma(M[last, last], torch.dot(y_last, y_last), clamp_gamma, gamma_min, gamma_max)
+    # M's diagonal read by index_select: M[last, last] with a tensor index
+    # reads it on the host, which a captured solve refuses
+    sy_last = M.diagonal().index_select(0, last.view(1))[0]
+    gamma = _gamma(sy_last, torch.dot(y_last, y_last), clamp_gamma, gamma_min, gamma_max)
     gamma = torch.where(c > 0, gamma, torch.ones_like(gamma))
 
     zero = torch.zeros((), dtype=v.dtype, device=v.device)

@@ -46,9 +46,16 @@ through a sampler of their own.
 constants captured into it. The sampler's seed is held in the device state
 and set by each solve from ``opts.seed``, so one capture serves every seed.
 
-Not ported yet (each raises ``NotImplementedError``): ``mesh=`` (ROADMAP
-queue 1 item 11) and ``store=`` (item 10). JAX's ``scan_unroll`` and
-``sampling`` options have no counterpart here.
+``store=`` (a :class:`~lbfgs_ffnn_torch.data.outofcore.ChunkStore`, with
+``x = y = None``) is the out-of-core run, JAX's ``_outofcore_ops``: the
+anchor's full gradient and the recorded loss and gradient norm sum over the
+store's chunks (:func:`~lbfgs_ffnn_torch.data.outofcore.chunked_mean_evals`),
+and each minibatch is gathered from the host store by the card
+(``store.fetch_rows``), from the same index streams as the in-memory run.
+
+Not ported yet (raises ``NotImplementedError``): ``mesh=`` (ROADMAP queue 1
+item 11). JAX's ``scan_unroll`` and ``sampling`` options have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -230,7 +237,8 @@ class _Scratch(NamedTuple):
 
 
 def _make_bodies(problem: BatchProblem, opts: SLBFGSOptions, x: torch.Tensor,
-                 y: torch.Tensor, margs: tuple, sampler, like: torch.Tensor) -> tuple[list, list]:
+                 y: torch.Tensor, margs: tuple, sampler, like: torch.Tensor,
+                 store=None) -> tuple[list, list]:
     """``(bodies, schedule)``: one epoch of JAX's ``body`` as three kinds of
     ``body(s, not_done)`` on the device state ``s``, in place, run in the
     order ``schedule``: the start (the anchor's full gradient, the
@@ -240,8 +248,10 @@ def _make_bodies(problem: BatchProblem, opts: SLBFGSOptions, x: torch.Tensor,
     the record). The start is guarded by ``not_done``, the rest by the
     epoch's ``run`` flag. Nothing in them reads a value back to the host.
     Each holds at most L + 1 steps, whatever ``m_inner``. ``sampler`` None
-    draws from :class:`EpochSampler` on the state's seed."""
-    N = x.shape[0]
+    draws from :class:`EpochSampler` on the state's seed. ``store`` (x and
+    y None) sums the full passes over its chunks and gathers the batches from
+    it, as JAX's ``_outofcore_ops``."""
+    N = store.n if store is not None else x.shape[0]
     b, m_inner, b_h = _sizes(opts, N)
     nb, p_end, tail = _plan(m_inner, opts.L)
     direction = _direction_fn(opts)
@@ -265,10 +275,22 @@ def _make_bodies(problem: BatchProblem, opts: SLBFGSOptions, x: torch.Tensor,
                              f"({count}, {b})")
         return idx
 
+    if store is not None:
+        from lbfgs_ffnn_torch.data.outofcore import chunked_mean_evals
+
+        full_loss, full_grad = chunked_mean_evals(problem, store)
+        fetch = store.fetch_rows
+    else:
+        def full_grad(w):
+            return problem.grad(w, x, y)
+
+        def fetch(idx):
+            return take_batch(x, y, idx)
+
     def batch_grads_at(w_t, w_anchor, idx):
         # One vmapped pass for both gradients on the shared batch, as JAX's
         # batch_grads_at.
-        xb, yb = take_batch(x, y, idx)
+        xb, yb = fetch(idx)
         g2 = grad_pair(torch.stack([w_t, w_anchor]), xb, yb)
         return g2[0], g2[1]
 
@@ -276,7 +298,7 @@ def _make_bodies(problem: BatchProblem, opts: SLBFGSOptions, x: torch.Tensor,
         if idx.shape != (b_h,):
             raise ValueError(f"the sampler's HVP batch has shape {tuple(idx.shape)}, "
                              f"not ({b_h},)")
-        xh, yh = take_batch(x, y, idx)
+        xh, yh = fetch(idx)
         if opts.hvp_mode == "fd":
             return problem.fd_hvp(u, s_vec, xh, yh, eps=opts.fd_eps)
         return problem.hvp(u, s_vec, xh, yh)
@@ -322,7 +344,7 @@ def _make_bodies(problem: BatchProblem, opts: SLBFGSOptions, x: torch.Tensor,
         sc.t0.fill_(opts.L)
         with guard(not_done):
             # SVRG anchor: the full gradient at w~ (s_lbfgs.hpp:203-206).
-            mu = problem.grad(s.w, x, y)
+            mu = full_grad(s.w)
             mu_norm = torch.linalg.norm(mu)
             converged = mu_norm < opts.tol
             for dst, new in ((sc.run, ~converged), (sc.mu, mu), (s.gnorm, mu_norm),
@@ -357,9 +379,11 @@ def _make_bodies(problem: BatchProblem, opts: SLBFGSOptions, x: torch.Tensor,
             j = draws(s).anchor(s.epoch, wr.count)
             w_new = torch.where(wr.count >= 2, _vr_pick(wr, j), wt)
             if opts.record_full:
-                full_loss, full_g = problem.value_and_grad(w_new, x, y)
-                record_at(sc.run, s.loss_h, s.gnorm_h, s.epoch, full_loss,
-                          torch.linalg.norm(full_g))
+                if store is not None:  # two chunk sweeps, as JAX's ops.full_loss and full_grad
+                    f_new, g_new = full_loss(w_new), full_grad(w_new)
+                else:
+                    f_new, g_new = problem.value_and_grad(w_new, x, y)
+                record_at(sc.run, s.loss_h, s.gnorm_h, s.epoch, f_new, torch.linalg.norm(g_new))
             if opts.metric_fn is not None:
                 record_row(sc.run, s.metric_h, s.epoch, opts.metric_fn(w_new, x, y, *margs))
             assign(sc.run, s.w, w_new)
@@ -378,9 +402,9 @@ def _counters(s: _State) -> tuple:
     return (s.epoch,)
 
 
-def _resident(problem, opts, w0, x, y, margs, sampler, capture: bool) -> Resident:
+def _resident(problem, opts, w0, x, y, margs, sampler, capture: bool, store=None) -> Resident:
     def make():
-        bodies, schedule = _make_bodies(problem, opts, x, y, margs, sampler, w0)
+        bodies, schedule = _make_bodies(problem, opts, x, y, margs, sampler, w0, store)
         return Resident(bodies, _init_state(opts, w0, x, y, margs), lambda s: _not_done(s, opts),
                         capture, schedule)
 
@@ -388,27 +412,30 @@ def _resident(problem, opts, w0, x, y, margs, sampler, capture: bool) -> Residen
         return make()
     # the seed is not in the key: the graphs read it from the state
     return cached_resident(("slbfgs", problem, opts._replace(seed=0), tuple(w0.shape), w0.dtype,
-                            w0.device, data_key((x, y, margs)), sampler), make)
+                            w0.device, data_key((x, y, margs)), sampler, store), make)
 
 
 def _solve(problem: BatchProblem, w0: Optional[torch.Tensor], x, y, opts: SLBFGSOptions, *,
            chunk: int, capture: bool, sampler=None, callback=None, resume_state=None,
-           epochs: Optional[int] = None, metric_args: tuple = ()):
+           epochs: Optional[int] = None, metric_args: tuple = (), store=None):
     """The resident driver: ``chunk`` epochs per host read, captured
     (``capture``, CUDA only; chunk c+1 is enqueued before the host reads
     chunk c) or run eagerly with masked writes (one chunk at a time: on
     the CPU a chunk enqueued ahead would only run ahead). ``epochs`` stops
     the host loop before ``opts.epochs`` (a warm-up that captures the full
-    solve's epoch). Returns ``(result, time_ms)``."""
+    solve's epoch). ``store``: the data in a ChunkStore (x = y = None).
+    Returns ``(result, time_ms)``."""
     _check_options(opts)
     if resume_state is None and w0 is None:
         raise ValueError("w0 is required unless resume_state is given")
     like = w0 if w0 is not None else resume_state.w
     if capture and not like.is_cuda:
         raise ValueError(f"a captured solve needs CUDA tensors, got {like.device}")
+    if store is not None and store.device != like.device:
+        raise ValueError(f"the store serves {store.device}, the iterate is on {like.device}")
     margs = tuple(metric_args)
     with full_f32(), torch.no_grad():
-        r = _resident(problem, opts, like, x, y, margs, sampler, capture)
+        r = _resident(problem, opts, like, x, y, margs, sampler, capture, store)
         state = (resume_state if resume_state is not None
                  else _init_state(opts, w0, x, y, margs))
         r.load(state._replace(seed=device_seed(opts.seed, like.device)))  # the seed is the run's
@@ -425,13 +452,21 @@ def _solve(problem: BatchProblem, w0: Optional[torch.Tensor], x, y, opts: SLBFGS
     return res, time_ms
 
 
-def _refuse(mesh, store=None) -> None:
+def _refuse(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("S-LBFGS with mesh= is not ported yet (ROADMAP queue 1 "
                                   "item 11)")
-    if store is not None:
-        raise NotImplementedError("S-LBFGS with store= (out-of-core) is not ported yet "
-                                  "(ROADMAP queue 1 item 10)")
+
+
+def _check_store(store, x, y, mesh, opts: SLBFGSOptions) -> None:
+    """JAX's guards of the out-of-core run: the data live in the store."""
+    if x is not None or y is not None:
+        raise ValueError("pass x=y=None with store= (data lives in the store)")
+    if mesh is not None:
+        raise ValueError("store= (out-of-core) and mesh= are mutually exclusive")
+    if opts.metric_fn is not None:
+        raise ValueError("metric_fn is unsupported with store= (no resident x/y to evaluate "
+                         "it on)")
 
 
 def slbfgs(
@@ -449,22 +484,27 @@ def slbfgs(
     """Run S-LBFGS from ``w0`` on its device (``x``, ``y`` there too). On
     CUDA tensors each epoch is replayed from its captured CUDA graphs,
     :data:`RESIDENT_CHUNK` epochs per host read; on CPU tensors the same
-    epoch runs eagerly.
+    epoch runs eagerly. ``store``: the data in a
+    :class:`~lbfgs_ffnn_torch.data.outofcore.ChunkStore` on w0's device,
+    with ``x = y = None`` (the out-of-core run; ``mesh`` and ``metric_fn``
+    are refused with it).
     ``sampler`` replaces the default index draws (see
     :class:`~lbfgs_ffnn_torch.ops.sampling.EpochSampler` for its protocol)."""
     opts = opts or SLBFGSOptions()
-    _refuse(mesh, store)
+    if store is not None:
+        _check_store(store, x, y, mesh, opts)
+    _refuse(mesh)
     return _solve(problem, w0, x, y, opts, chunk=RESIDENT_CHUNK, capture=w0.is_cuda,
-                  sampler=sampler, metric_args=metric_args)[0]
+                  sampler=sampler, metric_args=metric_args, store=store)[0]
 
 
 def _slbfgs_resident_eager(problem: BatchProblem, w0: torch.Tensor, x, y,
                            opts: SLBFGSOptions | None = None, chunk: int = RESIDENT_CHUNK,
-                           sampler=None, metric_args: tuple = ()) -> SolveResult:
+                           sampler=None, metric_args: tuple = (), store=None) -> SolveResult:
     """The epoch body run eagerly (masked writes, nothing captured) on any
     device: what the captured solve is held against."""
     return _solve(problem, w0, x, y, opts or SLBFGSOptions(), chunk=chunk, capture=False,
-                  sampler=sampler, metric_args=metric_args)[0]
+                  sampler=sampler, metric_args=metric_args, store=store)[0]
 
 
 def slbfgs_chunked(

@@ -10,6 +10,8 @@ differences, amplified by the iteration, reach 1e-9 of the loss: on
 Rosenbrock that happens after about 35 iterations at n = 4 and 22 at
 n = 1000, where the solve is still far from its minimum."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import inspect
 
 import jax.numpy as jnp

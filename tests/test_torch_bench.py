@@ -6,6 +6,8 @@ supplementary rows (the S-LBFGS row among them) on stderr, no "not ported"
 line. The headline choice is the root bench's rule, checked on fabricated
 rows."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import json
 import math
 

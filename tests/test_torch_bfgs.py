@@ -9,6 +9,8 @@ Rosenbrock is held over 30 iterations: the two libraries' f64 rounding,
 amplified by the iteration, reaches 1e-8 of the loss after about 39
 (ROADMAP, "Differences that are not faults")."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import importlib
 
 import jax.numpy as jnp

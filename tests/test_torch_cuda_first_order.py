@@ -11,6 +11,8 @@ Imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda_first_order.py``.
 Skips itself where ``torch.cuda.is_available()`` is false."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import importlib
 
 import numpy as np

@@ -9,6 +9,8 @@ Imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda_slbfgs.py``.
 Skips itself where ``torch.cuda.is_available()`` is false."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import numpy as np
 import pytest
 import torch
@@ -183,3 +185,28 @@ def test_launcher_slbfgs_on_card(cuda, tmp_path):
     assert h.n == 9 and len(np.unique(h.time_ms)) == 3 and np.all(np.diff(h.time_ms) >= 0)
     assert torch.equal(reports[0].result.x, reports[4].result.x)
     assert reports[4].result.n_host_syncs <= -(-9 // 4) + 2
+
+
+@pytest.mark.cuda
+def test_compact_two_loop_captures(cuda):
+    """two_loop_impl="compact" in a captured solve: S-LBFGS and Armijo
+    L-BFGS equal their bodies run eagerly on the card (its gamma once read
+    M's diagonal at a tensor index, a host read the capture refused)."""
+    import importlib
+
+    from lbfgs_ffnn_torch.objectives.mlp import mlp_problem
+    from lbfgs_ffnn_torch.solvers.common import clear_graph_cache
+    from lbfgs_ffnn_torch.solvers.slbfgs import SLBFGSOptions, _slbfgs_resident_eager, slbfgs
+
+    tl = importlib.import_module("lbfgs_ffnn_torch.solvers.lbfgs")
+    problem, w0, x, y = _case(cuda)
+    opts = SLBFGSOptions(epochs=3, tol=1e-12, history=10, L=5, batch_size=128,
+                         hvp_batch_size=64, step_size=0.02, two_loop_impl="compact")
+    res, eager = slbfgs(problem, w0, x, y, opts), _slbfgs_resident_eager(problem, w0, x, y, opts)
+    assert torch.equal(res.x, eager.x) and torch.equal(res.loss_history, eager.loss_history)
+    lopts = tl.LBFGSOptions(max_iters=12, tol=1e-12, m=10, line_search="armijo",
+                            two_loop_impl="compact")
+    mp = mlp_problem(mlp_spec([784, 32, 10], ["relu", "linear"]))
+    res, eager = tl.lbfgs(mp, w0, (x, y), lopts), tl._lbfgs_resident_eager(mp, w0, (x, y), lopts)
+    clear_graph_cache()
+    assert torch.equal(res.x, eager.x) and torch.equal(res.loss_history, eager.loss_history)

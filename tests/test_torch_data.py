@@ -1,6 +1,8 @@
 """The port's IDX readers and dataset assembly against the JAX package's,
 on fixtures written here (no external data files)."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import subprocess
 import sys
 from pathlib import Path

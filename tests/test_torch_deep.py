@@ -7,6 +7,8 @@ rounding (f64 -> f32 -> bf16 in both, checked bit for bit in
 tests/test_torch_two_loop.py), so only f64 summation order differs: rtol
 1e-9 on losses and gradient norms over 30 iterations, with equal counters."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,8 @@ MLP with N = 40:
   every branch.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import functools
 
 import jax.numpy as jnp

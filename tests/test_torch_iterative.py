@@ -5,6 +5,8 @@ libraries sum in other orders) and matvec counts exactly equal. The loops
 run eagerly here, the same code the card captures: each reads its flag on
 the host once per pass."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,8 @@ trajectory agrees to rtol 1e-9 (loss, gnorm) and 1e-8 (x) — f64 reduction
 order differs between the two, and 30 iterations keep the drift far below
 any Armijo threshold flip."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,8 @@ must be equal; values agree to rtol 1e-12, atol 1e-15 (same arithmetic,
 but XLA may contract ``x + a*p`` into one fused multiply-add, which moves
 a value that cancels to zero by ~1e-17)."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

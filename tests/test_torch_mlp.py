@@ -2,6 +2,8 @@
 numpy inputs. Tolerance rtol 1e-12: both sides run the same f64 arithmetic
 and differ only in summation order inside the matmuls and reductions."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

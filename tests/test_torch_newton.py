@@ -10,6 +10,8 @@ Newton-CG on Rosenbrock is held over its first 20 iterations: after ~23
 the two libraries' f64 rounding, amplified through CG, moves the loss by
 more than 1e-8 (ROADMAP, "Differences that are not faults")."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import importlib
 
 import jax

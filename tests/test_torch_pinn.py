@@ -16,6 +16,8 @@ JAX's weights cross over as numpy (``params_from_numpy``); the two
 packages' random streams differ.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import math
 import sys
 from pathlib import Path

@@ -16,6 +16,8 @@ package's ``lbfgs`` and ``lbfgs_chunked``, in f64 on the same numpy inputs
   trial, Wolfe's last update, as JAX's.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import importlib
 
 import jax.numpy as jnp

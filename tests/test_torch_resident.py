@@ -14,6 +14,8 @@
 * the Launcher's ``timed_chunks`` against the JAX Launcher's.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import functools
 import importlib
 import time

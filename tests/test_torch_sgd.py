@@ -15,6 +15,8 @@ N = 60:
 * the port's own sampler: chunk-invariant, keyed on the seed.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import functools
 import importlib
 

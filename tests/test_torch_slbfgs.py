@@ -17,6 +17,8 @@
   (``slbfgs_state_from_numpy``); the host-sync bound and the time column.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import functools
 import importlib
 
@@ -439,7 +441,7 @@ def test_slbfgs_refuses_what_is_not_ported():
     p, w, x, y = _problems()[1], _t(W0), _t(X), _t(Y)
     with pytest.raises(NotImplementedError):
         tsl.slbfgs(p, w, x, y, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="x=y=None"):  # store= is ported: JAX's guard
         tsl.slbfgs(p, w, x, y, store=object())
     with pytest.raises(NotImplementedError):
         tsl.slbfgs_chunked(p, w, x, y, mesh=object())

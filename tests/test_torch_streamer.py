@@ -11,6 +11,8 @@ the CPU:
 * the streamer's checks, its close and its producer's failure.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import importlib
 
 import jax.numpy as jnp

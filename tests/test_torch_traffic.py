@@ -15,6 +15,8 @@ f64 on the same numpy inputs:
   (``solvers.common.prepared``): a second solve gets the same tensors.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import importlib
 
 import jax.numpy as jnp

@@ -9,7 +9,10 @@ f32; the Hopper dispatch's picks and reasons, the resident kernel's cap and
 the streaming kernel's group sizes. The Hopper kernels' own tests, which
 need the card, are in tests/test_torch_cuda.py."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import functools
+import os
 import sys
 
 import jax.numpy as jnp
@@ -393,8 +396,24 @@ def test_plain_bf16_ring_matches_jax_f64(m, k, n, clamp):
     np.testing.assert_allclose(r_t.numpy(), np.asarray(r_j), rtol=1e-12, atol=1e-12)
 
 
+@pytest.fixture
+def machine_threads():
+    """torch's intra-op threads at every core this process may use, for the
+    test's length (``tests/_torch_threads.py`` caps a worker's below that).
+    The plain loops' f32 dots are BLAS dots whose rounding depends on how
+    many threads split them: at n = 400k on one thread the plain loop's
+    error is 3.1 times the Pallas kernel's, on two or more within the 2
+    times these tests hold, so they run with the threads they were written
+    for."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+                          else os.cpu_count())
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.mark.parametrize("n,pair", [(400_000, "bfloat16"), (200_000, "float32")])
-def test_plain_matches_pallas_streaming(n, pair):
+def test_plain_matches_pallas_streaming(n, pair, machine_threads):
     """The plain loop against JAX's streaming kernel (interpret mode) on the
     same f32 ring of 8 pushes into m=6 (wrapped), at sizes where
     pallas_dispatch picks "pallas-streaming". Both are f32 evaluations of a
@@ -506,7 +525,7 @@ def _pallas_streaming_case(pair):
 
 @GROUPS
 @pytest.mark.parametrize("pair", ["float32", "bfloat16"])
-def test_grouped_matches_pallas_streaming(group, pair):
+def test_grouped_matches_pallas_streaming(group, pair, machine_threads):
     """The grouped algebra in f32 against JAX's streaming kernel (K2's TPU
     counterpart, interpret mode), held as test_plain_matches_pallas_streaming
     holds the plain loop: both to the f64 recursion on the same stored rows,

@@ -5,6 +5,8 @@ zero, as in tests/test_torch_linesearch.py); and the Wolfe L-BFGS solve
 against JAX's where searches fail and the solver re-evaluates, and on the
 MLP, whose lean trials take jvps through the carried prefix."""
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

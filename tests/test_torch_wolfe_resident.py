@@ -17,6 +17,8 @@ package in f64:
   against the JAX Launcher's, and the runner's ``--timed-chunks`` on it.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
+
 import importlib
 
 import jax
