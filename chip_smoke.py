@@ -158,9 +158,15 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 other row 5000 iterations, Rastrigin n=500), its
                 L-BFGS row through K1 (launches = iterations + 1 capture per
                 row, counted on the device) and its BFGS+GMRES rows through
-                the least-squares kernel (csrc/lstsq.cu), held against its
-                plain version on full-rank and rank-deficient 21 x 20
-                Hessenberg matrices and timed beside it; Newton-CG
+                the least-squares kernel (csrc/lstsq.cu: a one-sided Jacobi
+                SVD in ceil(n / 2) warps, round-robin rounds of disjoint
+                column pairs, one warp reduction a pair), each row's wall
+                printed; the kernel held against its plain version at the
+                shapes GMRES gives it (4 x 3, 5 x 4, 21 x 20 full rank; 21
+                x 20 rank 7) and timed by events and replayed from CUDA
+                graphs at those shapes and 32 x 31, f32 and f64, beside the
+                plain version, torch.linalg.svd and torch.linalg.lstsq, with
+                its sweeps, rounds and ns a round; Newton-CG
                 (cg_max_iters=50) and factor-form BFGS (CG, 200 iterations)
                 at MNIST width (784-128-10, N=60,000, f32), 10 iterations
                 each: ms/iter, HVPs or matvecs/iter, trials/iter, host syncs,
@@ -2212,58 +2218,44 @@ def _events_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _jacobi_sweeps(H: np.ndarray) -> int:
-    """The sweeps the kernel's one-sided Jacobi SVD makes on ``H`` (f64), the
-    last one rotating nothing: its loop and threshold in numpy. Every sweep
-    visits all n (n - 1) / 2 column pairs, each three warp reductions in a
-    row, the kernel's chain of dependent steps."""
-    A = H.astype(np.float64).copy()
-    m, n = A.shape
-    tol = np.finfo(np.float64).eps * np.sqrt(m)
-    for sweep in range(60):  # kMaxSweeps
-        rotated = False
-        for p in range(n - 1):
-            for q in range(p + 1, n):
-                ap, aq = A[:, p].copy(), A[:, q].copy()
-                alpha, beta, gamma = ap @ ap, aq @ aq, ap @ aq
-                if gamma == 0 or abs(gamma) <= tol * np.sqrt(alpha) * np.sqrt(beta):
-                    continue
-                zeta = (beta - alpha) / (2 * gamma)
-                t = np.copysign(1 / (abs(zeta) + np.sqrt(1 + zeta * zeta)), zeta)
-                c = 1 / np.sqrt(1 + t * t)
-                A[:, p], A[:, q] = c * ap - c * t * aq, c * t * ap + c * aq
-                rotated = True
-        if not rotated:
-            return sweep + 1
-    return 60
+def _replayed_ms(torch, fn, reps=20, calls=(10, 50)):
+    """ms per call of ``fn()`` replayed from CUDA graphs: ``calls[0]`` and
+    ``calls[1]`` calls captured in two graphs, each replayed ``reps`` times
+    between events, the slope between them."""
+    fn()
+    torch.cuda.synchronize()
+    per_replay = []
+    for k in calls:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(k):
+                fn()
+        graph.replay()
+        per_replay.append(_events_ms(torch, graph.replay, reps))
+        del graph
+    return (per_replay[1] - per_replay[0]) / (calls[1] - calls[0])
 
 
 def _lstsq_kernel(torch, dev):
     """The GMRES least-squares kernel against its plain version (the SVD
-    formula on the CPU in f64) on GMRES's 21 x 20 Hessenberg shape, full rank
-    and after a happy breakdown (rank 7: zero columns), f64 and f32; its
-    time beside the plain version's on the card, the QR library call's (the
-    same function where H has full rank) and its bound. Not counted: the
-    main path's launches are counted in the suite."""
-    from lbfgs_ffnn_torch.ops.cuda_lstsq import lstsq_min_norm, lstsq_plain
+    formula on the CPU in f64) at the shapes GMRES gives it (4 x 3, 5 x 4,
+    21 x 20, full rank; 21 x 20 after a happy breakdown, rank 7: zero
+    columns), f64 and f32; at those shapes and 32 x 31, its time by events
+    and replayed from CUDA graphs, beside the plain version's,
+    torch.linalg.svd's and the QR library call's (the same function where H
+    has full rank), its sweeps (counted on the device; the mirror's, with
+    its rounds) and ns per round; its bound at 21 x 20 f64. Not counted:
+    the main path's launches are counted in the suite."""
+    from lbfgs_ffnn_torch.ops.cuda_lstsq import (
+        hessenberg, jacobi_mirror, launch, lstsq_min_norm, lstsq_plain,
+    )
 
-    rng = np.random.default_rng(SEED)
-    m, n = 21, 20
-    cases = {}
-    for rank in (n, 7):
-        H = np.triu(rng.normal(size=(m, n)), -1)
-        if rank < n:
-            H[:, rank:] = 0.0
-            H[rank + 1:, :] = 0.0
-            H[rank, rank - 1] = 0.0
-        beta = np.zeros(m)
-        beta[0] = rng.normal()
-        cases[rank] = (H, beta)
+    cases = [((4, 3), 3), ((5, 4), 4), ((21, 20), 20), ((21, 20), 7)]
     worst = {}
     for dtype in (torch.float64, torch.float32):
-        for rank, (H, beta) in cases.items():
-            Hd = torch.tensor(H, dtype=dtype, device=dev)
-            bd = torch.tensor(beta, dtype=dtype, device=dev)
+        for (m, n), rank in cases:
+            Hd, bd = (torch.tensor(a, dtype=dtype, device=dev)
+                      for a in hessenberg(SEED + rank, m, n, rank))
             y = lstsq_min_norm(Hd, bd).cpu().double()
             ref = lstsq_plain(Hd.cpu().double(), bd.cpu().double())
             plain_own = lstsq_plain(Hd.cpu(), bd.cpu()).double()
@@ -2274,32 +2266,56 @@ def _lstsq_kernel(torch, dev):
             ok = (err <= 1e-10 * scale if dtype == torch.float64
                   else err <= 4 * err_plain + 10 * eps * scale)
             check(ok and bool(torch.all(y[rank:] == 0)),
-                  f"lstsq kernel {dtype} rank {rank}: max |kernel - plain f64| {err:.3g} "
-                  f"(plain in {dtype}: {err_plain:.3g}), zero weights {y[rank:].tolist()}")
-            worst[(str(dtype).split(".")[-1], rank)] = (err, err_plain)
-    H, beta = cases[n]
-    Hd, bd = torch.tensor(H, device=dev), torch.tensor(beta, device=dev)
-    ms = _events_ms(torch, lambda: lstsq_min_norm(Hd, bd), LSTSQ_REPS)
-    plain_ms = _events_ms(torch, lambda: lstsq_plain(Hd, bd), 50)
-    library_ms = _events_ms(torch, lambda: torch.linalg.lstsq(Hd, bd[:, None]).solution, 50)
+                  f"lstsq kernel {dtype} {m} x {n} rank {rank}: max |kernel - plain f64| "
+                  f"{err:.3g} (plain in {dtype}: {err_plain:.3g}), zero weights "
+                  f"{y[rank:].tolist()}")
+            worst[(str(dtype).split(".")[-1], f"{m}x{n}", rank)] = (err, err_plain)
+    say("suite", "least-squares kernel (lstsq_min_norm_kernel, csrc/lstsq.cu) against the SVD "
+        "formula in f64, max abs error: "
+        + ", ".join(f"{d} {s} rank {r}: {e:.3g} (plain in {d} {ep:.3g})"
+                    for (d, s, r), (e, ep) in worst.items()))
+    timed = {}
+    for m, n in ((4, 3), (5, 4), (21, 20), (32, 31)):
+        H, b = hessenberg(SEED, m, n)
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[-1]
+            Hd, bd = torch.tensor(H, dtype=dtype, device=dev), torch.tensor(b, dtype=dtype,
+                                                                           device=dev)
+            swept = torch.zeros(1, dtype=torch.int32, device=dev)
+            launch(Hd, bd, sweeps=swept)
+            sweeps, rounds = jacobi_mirror(H.astype(name), b.astype(name))[1:]
+            check(int(swept) == sweeps, f"lstsq {m} x {n} {name}: {int(swept)} sweeps on the "
+                  f"card, the mirror {sweeps}")
+            t = {"ms": _events_ms(torch, lambda: lstsq_min_norm(Hd, bd), LSTSQ_REPS),
+                 "replayed_ms": _replayed_ms(torch, lambda: lstsq_min_norm(Hd, bd)),
+                 "plain_ms": _events_ms(torch, lambda: lstsq_plain(Hd, bd), 50),
+                 "svd_ms": _events_ms(torch, lambda: torch.linalg.svd(Hd, full_matrices=False),
+                                      50),
+                 "library_ms": _events_ms(
+                     torch, lambda: torch.linalg.lstsq(Hd, bd[:, None]).solution, 50)}
+            timed[(m, n, name)] = t
+            say("suite", f"  lstsq {m} x {n} {name}: events {t['ms'] * 1e3:.2f} us/call "
+                f"({LSTSQ_REPS} calls), replayed {t['replayed_ms'] * 1e3:.2f} us/call (graph "
+                f"slope); {sweeps} sweeps (the card's count = the mirror's), {rounds} rounds a "
+                f"call, {t['replayed_ms'] * 1e6 / rounds:.1f} ns a round (replayed); plain "
+                f"(torch.linalg.svd on the card) {t['plain_ms'] * 1e3:.2f} us, torch.linalg.svd "
+                f"{t['svd_ms'] * 1e3:.2f} us, torch.linalg.lstsq (QR, full rank only) "
+                f"{t['library_ms'] * 1e3:.2f} us")
+    m, n = 21, 20
+    t = timed[(m, n, "float64")]
     nbytes = (m * n + m + n) * 8
     flops = 4 * m * n * n + 8 * n ** 3 + 2 * m * n + 2 * n * n  # R-SVD (Golub-Van Loan) + solve
     t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOPS * 1e3
     bound_ms, bound_by = max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
-    pairs = _jacobi_sweeps(H) * n * (n - 1) // 2
-    say("suite", "least-squares kernel (lstsq_min_norm_kernel, csrc/lstsq.cu) against the SVD "
-        "formula in f64: " + ", ".join(f"{d} rank {r}: {e:.3g} (plain in {d} {ep:.3g})"
-                                       for (d, r), (e, ep) in worst.items())
-        + f"; 21 x 20 f64: {ms * 1e3:.2f} us/call (CUDA events, {LSTSQ_REPS} calls), plain "
-        f"(torch.linalg.svd on the card) {plain_ms * 1e3:.2f} us, torch.linalg.lstsq (QR, full "
-        f"rank only) {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.4f} us ({bound_by}, "
-        f"f64 at {F64_FLOPS / 1e12:.0f} TFLOP/s); latency: {pairs} column pairs in a row "
-        f"({pairs // (n * (n - 1) // 2)} sweeps), {ms * 1e6 / pairs:.1f} ns per pair")
+    say("suite", f"lstsq 21 x 20 f64: bound {bound_ms * 1e3:.4f} us ({bound_by}, f64 at "
+        f"{F64_FLOPS / 1e12:.0f} TFLOP/s); latency-bound: rounds in a row, each a warp "
+        "reduction, a rotation and a barrier")
     return {"name": "lstsq_min_norm", "route": "cuda", "source": "lbfgs_ffnn_torch/csrc/lstsq.cu",
             "replaces": "jnp.linalg.lstsq in lbfgs_ffnn_tpu/ops/iterative.py:113 "
                         "(no Pallas kernel; GMRES's least squares)",
-            "max_abs_err": max(e for e, _ in worst.values()), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "max_abs_err": max(e for e, _ in worst.values()), "ms": t["ms"],
+            "replayed_ms": t["replayed_ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t["library_ms"]}
 
 
 def suite_phase(torch, dev, profile: bool, mnist_root):
@@ -2355,6 +2371,10 @@ def suite_phase(torch, dev, profile: bool, mnist_root):
     failed = [g for g, ok in gates if not ok]
     check(not failed, f"f64 suite rows outside JAX's gates (tests/test_solvers_analytic.py:"
           f"69-101): {failed}")
+    say("suite", "f32 suite, BFGS+GMRES rows (" + str(SUITE_F32_GMRES_ITERS) + " iterations): "
+        + ", ".join(f"{r.test} {r.elapsed_s:.3f} s ({r.n_iters} it)" for r in records["f32"]
+                    if r.implementation == "BFGS+GMRES")
+        + " (the runner's CUDA events, each solve's capture included)")
     lbfgs32 = [r for r in records["f32"] if r.implementation == "LBFGS"]
     want_k1 = sum(r.n_iters for r in lbfgs32) + len(lbfgs32)  # + each row's capture
     check(launches == {k: want_k1 * (k == COOPERATIVE) for k in launches},

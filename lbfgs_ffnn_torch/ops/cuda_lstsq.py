@@ -7,22 +7,29 @@ solution through an SVD, singular values below ``eps * max(M, N)`` of the
 largest (and exact zeros) treated as zero. :func:`lstsq_plain` is that
 formula in torch (``torch.linalg.svd``); :func:`lstsq_min_norm` calls it for
 CPU tensors and launches ``lstsq_min_norm_kernel`` (``csrc/lstsq.cu``, a
-one-warp Jacobi SVD, whose header says why) for CUDA tensors: on the card
-``torch.linalg.lstsq`` has only the QR driver, which a rank-deficient H
-(a happy breakdown) defeats, and the SVD routes read a flag on the host,
-which a captured GMRES cannot do. A CUDA tensor the kernel does not take
-raises; nothing falls back.
+one-sided Jacobi SVD in one block of ceil(n / 2) warps, each rotating one
+column pair of a round-robin round, whose header says why) for CUDA
+tensors: on the card ``torch.linalg.lstsq`` has only the QR route (gels), which a
+rank-deficient H (a happy breakdown) defeats, and the SVD routes read a
+flag on the host, which a captured GMRES cannot do. A CUDA tensor the
+kernel does not take raises; nothing falls back. :func:`jacobi_mirror` is
+the kernel's arithmetic in numpy, in its order (the schedule
+:func:`round_robin`, the carried norms, the stop test), for the sweeps and
+rounds a matrix takes; :func:`hessenberg` makes the seeded GMRES-shaped
+matrices the kernel is tested and measured on.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from lbfgs_ffnn_torch import _build
 
 MAX_DIM = 32  # kMaxDim in the source: rows and columns of H
+MAX_SWEEPS = 60  # kMaxSweeps
 
 
 def lstsq_plain(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,7 +52,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("lstsq")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstsq_launch.argtypes = [i, p, p, p, i, i, p, p]
+        lib.lstsq_launch.argtypes = [i, p, p, p, i, i, p, p, p]
         lib.lstsq_launch.restype = i
         lib.lstsq_error_string.argtypes = [i]
         lib.lstsq_error_string.restype = ctypes.c_char_p
@@ -85,15 +92,12 @@ class LaunchCount:
         return f"LaunchCount({int(self)})"
 
 
-def lstsq_min_norm(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The minimum-norm least-squares solution of ``H y = b`` (``H`` of at
-    most :data:`MAX_DIM` rows and columns, f32 or f64): :func:`lstsq_plain`
-    for CPU tensors, the kernel for CUDA tensors, on the current stream,
-    adding one to ``lstsq_min_norm.LAUNCHES`` on the device."""
-    if H.device.type == "cpu":
-        return lstsq_plain(H, b)
-    if H.device.type != "cuda":
-        raise ValueError(f"lstsq_min_norm takes CPU or CUDA tensors, got {H.device}")
+def launch(H: torch.Tensor, b: torch.Tensor, sweeps: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    """Launches the kernel on CUDA tensors, on the current stream, counted
+    on ``lstsq_min_norm.LAUNCHES``; ``sweeps``, an int32 tensor on ``H``'s
+    device, gets the launch's sweeps (the last, which rotates nothing,
+    included) added to its first entry."""
     if H.dim() != 2 or b.shape != (H.shape[0],):
         raise ValueError(f"H must be (m, n) and b (m,), got {tuple(H.shape)}, {tuple(b.shape)}")
     m, n = H.shape
@@ -103,17 +107,152 @@ def lstsq_min_norm(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"H and b must be float32 or float64 alike, got {H.dtype}, {b.dtype}")
     if b.device != H.device:
         raise ValueError(f"b is on {b.device}, H on {H.device}")
+    if sweeps is not None and (sweeps.dtype != torch.int32 or sweeps.device != H.device):
+        raise ValueError(f"sweeps must be int32 on {H.device}, got {sweeps.dtype} on "
+                         f"{sweeps.device}")
     lib = _lib()
     with torch.cuda.device(H.device):
         Hc, bc = H.contiguous(), b.contiguous()
         y = torch.empty(n, dtype=H.dtype, device=H.device)
         count = lstsq_min_norm.LAUNCHES.counter(H.device)
         rc = lib.lstsq_launch(H.element_size(), Hc.data_ptr(), bc.data_ptr(), y.data_ptr(), m, n,
-                              torch.cuda.current_stream().cuda_stream, count.data_ptr())
+                              torch.cuda.current_stream().cuda_stream, count.data_ptr(),
+                              None if sweeps is None else sweeps.data_ptr())
     if rc != 0:
         raise RuntimeError(f"lstsq_launch({m} x {n}, {H.dtype}) failed: CUDA error {rc} "
                            f"({lib.lstsq_error_string(rc).decode()})")
     return y
 
 
+def lstsq_min_norm(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The minimum-norm least-squares solution of ``H y = b`` (``H`` of at
+    most :data:`MAX_DIM` rows and columns, f32 or f64): :func:`lstsq_plain`
+    for CPU tensors, the kernel for CUDA tensors, on the current stream,
+    adding one to ``lstsq_min_norm.LAUNCHES`` on the device."""
+    if H.device.type == "cpu":
+        return lstsq_plain(H, b)
+    if H.device.type != "cuda":
+        raise ValueError(f"lstsq_min_norm takes CPU or CUDA tensors, got {H.device}")
+    return launch(H, b)
+
+
 lstsq_min_norm.LAUNCHES = LaunchCount()
+
+
+def round_robin(n: int) -> list[list[tuple[int, int]]]:
+    """The kernel's schedule over ``n`` columns, a zero dummy column added
+    where ``n`` is odd: ``N - 1`` rounds of ``N / 2`` disjoint pairs ``(p,
+    q)``, ``p < q``, pair ``w`` of a round being warp ``w``'s; column ``N -
+    1`` stays, the others turn."""
+    N = n + n % 2
+    M = N - 1
+    rounds = []
+    for r in range(M):
+        pairs = [(r, M) if w == 0 else ((r + w) % M, (r - w) % M) for w in range(N // 2)]
+        rounds.append([(min(a, b), max(a, b)) for a, b in pairs])
+    return rounds
+
+
+def _tree_sum(x: np.ndarray) -> np.ndarray:
+    """The warp's shuffle-down tree over the last axis of 32 lanes."""
+    x = x.copy()
+    for off in (16, 8, 4, 2, 1):
+        x[..., :off] = x[..., :off] + x[..., off:2 * off]
+    return x[..., 0]
+
+
+def _sweeps(A: np.ndarray, V: np.ndarray, rows: int) -> tuple[int, int]:
+    """The kernel's sweep loop on the columns ``A`` (N, 32), rotating ``V``
+    alike, in place; returns ``(sweeps, rounds)``."""
+    dt = A.dtype.type
+    tol = dt(np.finfo(dt).eps) * np.sqrt(dt(rows))
+    tol2 = tol * tol
+    nrm = np.zeros(A.shape[0], dt)
+    schedule = round_robin(A.shape[0])
+    rounds = 0
+    with np.errstate(all="ignore"):  # NaNs spread as the kernel's do
+        for sweep in range(1, MAX_SWEEPS + 1):
+            rotated = False
+            for r, pairs in enumerate(schedule):
+                P, Q = np.array(pairs).T
+                ap, aq = A[P], A[Q]
+                gamma = _tree_sum(ap * aq)
+                if r == 0:  # every column once: its norm afresh
+                    alpha, beta = _tree_sum(ap * ap), _tree_sum(aq * aq)
+                else:
+                    alpha, beta = nrm[P], nrm[Q]
+                rot = ~((gamma == 0) | (gamma * gamma <= (tol2 * alpha) * beta))
+                rounds += 1
+                rotated |= bool(rot.any())
+                # the kernel's rotation(): f64 takes c from rsqrt, 1 / sqrt here
+                d = beta - alpha
+                g2 = dt(2) * gamma
+                t = g2 / (np.abs(d) + np.hypot(d, g2))
+                t = np.where(np.signbit(d), -t, t).astype(dt)
+                c = dt(1) / np.sqrt(dt(1) + t * t)
+                s = c * t
+                w, cc, ss = rot[:, None], c[:, None], s[:, None]
+                vp, vq = V[P], V[Q]
+                A[P], A[Q] = np.where(w, cc * ap - ss * aq, ap), np.where(w, ss * ap + cc * aq, aq)
+                V[P], V[Q] = np.where(w, cc * vp - ss * vq, vp), np.where(w, ss * vp + cc * vq, vq)
+                nrm[P] = np.where(rot, alpha - t * gamma, alpha)
+                nrm[Q] = np.where(rot, beta + t * gamma, beta)
+            if not rotated:
+                break
+    return sweep, rounds
+
+
+def jacobi_mirror(H: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, int, int]:
+    """The kernel's arithmetic in numpy, in the kernel's order and in
+    ``H``'s dtype (float32 or float64): ``(y, sweeps, rounds)``, ``rounds``
+    counting every round of every sweep, the last sweep (which rotates
+    nothing) included. nvcc contracts products and sums into fused
+    multiply-adds where numpy rounds twice, so the kernel's bits may differ
+    in the last place."""
+    dt = H.dtype.type
+    m, n = H.shape
+    N = n + n % 2
+    with np.errstate(all="ignore"):  # NaNs spread as the kernel's do
+        c = np.zeros(MAX_DIM, dt)
+        c[:m] = b
+        A = np.zeros((N, MAX_DIM), dt)
+        A[:n, :m] = H.T
+        V = np.zeros((N, MAX_DIM), dt)
+        V[:n, :n] = np.eye(n, dtype=dt)
+        sweeps, rounds = _sweeps(A, V, m)
+        sigma = np.sqrt(_tree_sum(A * A))[:n]
+        dotb = _tree_sum(A * c)[:n]
+        cutoff = dt(np.finfo(dt).eps) * dt(max(m, n)) * sigma.max()
+        keep = (sigma > 0) & (sigma >= cutoff)
+        safe = np.where(keep, sigma, dt(1))
+        coef = np.where(keep, (dotb / safe) / safe, dt(0))
+        y = np.zeros(MAX_DIM, dt)
+        for j in range(n):
+            y = y + V[j] * coef[j]
+    return y[:n], sweeps, rounds
+
+
+def hessenberg(seed: int, m: int, n: int, rank: int | None = None,
+               graded: str | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """A seeded ``(m, n)`` upper Hessenberg ``H`` (f64) and ``b``, GMRES's
+    ``beta e_1``: the matrices the kernel's tests and measurements use.
+    ``rank < n``: a happy breakdown at column ``rank - 1`` (zero columns
+    and rows after it). ``graded="columns"``: column j scaled by ``1e-8 **
+    (j / (n - 1))``; ``"rows"``: row i by ``1e-5 ** (i / (m - 1))``, as a
+    GMRES cycle whose subdiagonal shrinks leaves H (at 21 x 20, seeds
+    100-103, condition numbers of about 1e8, and 4e7 to 3e9)."""
+    rng = np.random.default_rng(seed)
+    H = np.triu(rng.normal(size=(m, n)), -1)
+    if rank is not None and rank < n:
+        H[:, rank:] = 0.0
+        H[rank + 1:, :] = 0.0
+        H[rank, rank - 1] = 0.0
+    b = np.zeros(m)
+    b[0] = rng.normal()
+    if graded == "columns":
+        H = H * np.geomspace(1.0, 1e-8, n)[None, :]
+    elif graded == "rows":
+        H = np.geomspace(1.0, 1e-5, m)[:, None] * H
+    elif graded is not None:
+        raise ValueError(f"graded is 'columns' or 'rows', got {graded!r}")
+    return H, b

@@ -297,33 +297,26 @@ def test_body_that_raises_three_nodes_deep(cuda):
     _same(cap, tn._newton_resident_eager(good, x0, opts=opts))
 
 
-def _hessenberg(rng, m, n, rank, dtype, dev):
-    H = np.triu(rng.normal(size=(m, n)), -1)
-    if rank < n:  # a happy breakdown at column rank - 1: zero columns and rows after it
-        H[:, rank:] = 0.0
-        H[rank + 1:, :] = 0.0
-        H[rank, rank - 1] = 0.0
-    b = np.zeros(m)
-    b[0] = rng.normal()
-    return (torch.tensor(H, dtype=dtype, device=dev), torch.tensor(b, dtype=dtype, device=dev))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape,rank", [((21, 20), 20), ((21, 20), 2), ((21, 20), 7),
-                                        ((5, 4), 4), ((7, 6), 1)])
-def test_lstsq_kernel_matches_plain(cuda, dtype, shape, rank):
+@pytest.mark.parametrize("shape,rank,graded", [
+    ((21, 20), 20, None), ((21, 20), 2, None), ((21, 20), 7, None), ((5, 4), 4, None),
+    ((7, 6), 1, None), ((4, 3), 3, None), ((22, 21), 21, None), ((32, 31), 31, None),
+    ((21, 20), 20, "columns")])
+def test_lstsq_kernel_matches_plain(cuda, dtype, shape, rank, graded):
     """The least-squares kernel against its plain version (the SVD formula,
     computed in f64 on the CPU) on GMRES-shaped Hessenberg matrices, full
-    rank and after a happy breakdown: the minimum-norm solution (zero
-    weight on the zero columns), f64 to 1e-10 of its largest entry, f32's
-    error (against the f64 plain solution) at most 4 times the plain
-    version's own in f32, plus 10 eps; a launch counted on the device; a
-    captured launch equals the eager one bitwise."""
+    rank (odd and even n up to the largest, 32 x 31), after a happy
+    breakdown, and graded by columns to cond 1.7e8: the minimum-norm
+    solution (zero weight on the zero columns), f64 to 1e-10 of its largest
+    entry, f32's error (against the f64 plain solution) at most 4 times the
+    plain version's own in f32, plus 10 eps; a launch counted on the device;
+    a captured launch equals the eager one bitwise."""
     from lbfgs_ffnn_torch.ops.control import Graph, capture
-    from lbfgs_ffnn_torch.ops.cuda_lstsq import lstsq_min_norm, lstsq_plain
+    from lbfgs_ffnn_torch.ops.cuda_lstsq import hessenberg, lstsq_min_norm, lstsq_plain
 
-    H, b = _hessenberg(np.random.default_rng(rank), *shape, rank, dtype, cuda)
+    H, b = (torch.tensor(a, dtype=dtype, device=cuda)
+            for a in hessenberg(100 if graded else rank, *shape, rank, graded=graded))
     lstsq_min_norm.LAUNCHES.reset()
     y = lstsq_min_norm(H, b)
     assert int(lstsq_min_norm.LAUNCHES) == 1
@@ -344,6 +337,39 @@ def test_lstsq_kernel_matches_plain(cuda, dtype, shape, rank):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, y) and int(lstsq_min_norm.LAUNCHES) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [100, 101, 102, 103])
+def test_lstsq_kernel_graded_by_rows(cuda, seed):
+    """21 x 20 f64 graded by rows (cond 4e7 to 3e9), as a GMRES cycle whose
+    subdiagonal shrinks leaves H, against the plain version: to 1e-8 of its
+    largest entry, the bound ``tests/test_torch_lstsq.py`` holds the mirror
+    to at these seeds."""
+    from lbfgs_ffnn_torch.ops.cuda_lstsq import hessenberg, lstsq_min_norm, lstsq_plain
+
+    H, b = hessenberg(seed, 21, 20, graded="rows")
+    y = lstsq_min_norm(torch.tensor(H, device=cuda), torch.tensor(b, device=cuda))
+    ref = lstsq_plain(torch.tensor(H), torch.tensor(b))
+    assert float((y.cpu() - ref).abs().max()) <= 1e-8 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_lstsq_kernel_sweeps_match_the_mirror(cuda):
+    """At 21 x 20 f64 the kernel makes as many sweeps as its numpy mirror
+    (counted on the device through ``launch(sweeps=)``, two launches adding
+    up), and ``lstsq_min_norm`` gives the same bits."""
+    from lbfgs_ffnn_torch.ops.cuda_lstsq import (
+        hessenberg, jacobi_mirror, launch, lstsq_min_norm,
+    )
+
+    H, b = hessenberg(0, 21, 20)
+    Hd, bd = torch.tensor(H, device=cuda), torch.tensor(b, device=cuda)
+    swept = torch.zeros(1, dtype=torch.int32, device=cuda)
+    y = launch(Hd, bd, sweeps=swept)
+    launch(Hd, bd, sweeps=swept)
+    assert int(swept) == 2 * jacobi_mirror(H, b)[1]
+    assert torch.equal(lstsq_min_norm(Hd, bd), y)
 
 
 @pytest.mark.cuda

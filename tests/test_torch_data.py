@@ -99,6 +99,7 @@ def test_port_imports_without_jax():
         "import lbfgs_ffnn_torch.experiments.diag_two_loop_large, chip_smoke\n"
         "import lbfgs_ffnn_torch.experiments.blocked_stage_study\n"
         "import lbfgs_ffnn_torch.experiments.resident_phase_study\n"
+        "import lbfgs_ffnn_torch.experiments.lstsq_study\n"
         "import lbfgs_ffnn_torch.ops.control, lbfgs_ffnn_torch.experiments.bench\n"
         "import lbfgs_ffnn_torch.solvers.slbfgs, lbfgs_ffnn_torch.ops.sampling\n"
         "import lbfgs_ffnn_torch.objectives.pinn, lbfgs_ffnn_torch.experiments.run_burgers\n"
