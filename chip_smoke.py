@@ -158,15 +158,18 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 other row 5000 iterations, Rastrigin n=500), its
                 L-BFGS row through K1 (launches = iterations + 1 capture per
                 row, counted on the device) and its BFGS+GMRES rows through
-                the least-squares kernel (csrc/lstsq.cu: a one-sided Jacobi
-                SVD in ceil(n / 2) warps, round-robin rounds of disjoint
-                column pairs, one warp reduction a pair), each row's wall
-                printed; the kernel held against its plain version at the
-                shapes GMRES gives it (4 x 3, 5 x 4, 21 x 20 full rank; 21
-                x 20 rank 7) and timed by events and replayed from CUDA
-                graphs at those shapes and 32 x 31, f32 and f64, beside the
-                plain version, torch.linalg.svd and torch.linalg.lstsq, with
-                its sweeps, rounds and ns a round; Newton-CG
+                the least-squares kernel (csrc/lstsq.cu: a Givens triangle
+                of H's rows with b carried, then one-sided Jacobi sweeps on
+                its rows in ceil(n / 2) warps, round-robin rounds of
+                disjoint row pairs, one warp reduction a pair), each row's
+                wall printed; the kernel held against its plain version at
+                the shapes GMRES gives it (4 x 3, 5 x 4, 21 x 20 full rank;
+                21 x 20 rank 7; 21 x 20 f64 graded by rows, seeds 100-103,
+                to 1e-10 in the mirror's sweeps) and timed by events and
+                replayed from CUDA graphs at those shapes and 32 x 31, f32
+                and f64, beside the plain version, torch.linalg.svd and
+                torch.linalg.lstsq, with its sweeps, rounds and ns a round;
+                Newton-CG
                 (cg_max_iters=50) and factor-form BFGS (CG, 200 iterations)
                 at MNIST width (784-128-10, N=60,000, f32), 10 iterations
                 each: ms/iter, HVPs or matvecs/iter, trials/iter, host syncs,
@@ -342,6 +345,7 @@ SUITE_F32_GMRES_ITERS = 10  # the f32 suite's BFGS+GMRES rows (10,000 GMRES cycl
 SUITE_DENSE_ITERS = 10     # the dense solves at n = DENSE_HESSIAN_LIMIT
 SUITE_CHECK_ITERS = 30     # Rosenbrock n = 4 solves held captured = eager body bitwise
 LSTSQ_REPS = 200           # timed calls of the least-squares kernel
+LSTSQ_GRADED_SEEDS = (100, 101, 102, 103)  # its row-graded 21 x 20 matrices (cond 4e7 to 3e9)
 TIMED_CALLS = 200
 TIMED_CALLS_LARGE = 20  # per timing in the n = 1M, 2M and 4M rows
 L2_BYTES = 50e6            # H100 L2
@@ -2240,8 +2244,10 @@ def _lstsq_kernel(torch, dev):
     """The GMRES least-squares kernel against its plain version (the SVD
     formula on the CPU in f64) at the shapes GMRES gives it (4 x 3, 5 x 4,
     21 x 20, full rank; 21 x 20 after a happy breakdown, rank 7: zero
-    columns), f64 and f32; at those shapes and 32 x 31, its time by events
-    and replayed from CUDA graphs, beside the plain version's,
+    columns), f64 and f32; 21 x 20 f64 graded by rows at
+    LSTSQ_GRADED_SEEDS, to 1e-10 in the mirror's sweeps; at those shapes
+    and 32 x 31, its time by events and replayed from CUDA graphs, beside
+    the plain version's,
     torch.linalg.svd's and the QR library call's (the same function where H
     has full rank), its sweeps (counted on the device; the mirror's, with
     its rounds) and ns per round; its bound at 21 x 20 f64. Not counted:
@@ -2274,6 +2280,22 @@ def _lstsq_kernel(torch, dev):
         "formula in f64, max abs error: "
         + ", ".join(f"{d} {s} rank {r}: {e:.3g} (plain in {d} {ep:.3g})"
                     for (d, s, r), (e, ep) in worst.items()))
+    graded = {}
+    for seed in LSTSQ_GRADED_SEEDS:  # graded by rows, as a shrinking subdiagonal leaves H
+        H, b = hessenberg(seed, 21, 20, graded="rows")
+        swept = torch.zeros(1, dtype=torch.int32, device=dev)
+        y = launch(torch.tensor(H, device=dev), torch.tensor(b, device=dev), sweeps=swept).cpu()
+        ref = lstsq_plain(torch.tensor(H), torch.tensor(b))
+        err, scale = float((y - ref).abs().max()), float(ref.abs().max())
+        sweeps = jacobi_mirror(H, b)[1]
+        check(err <= 1e-10 * scale and int(swept) == sweeps,
+              f"lstsq kernel f64 21 x 20 graded by rows, seed {seed}: max |kernel - plain f64| "
+              f"{err:.3g} of {scale:.3g} (1e-10 allowed), {int(swept)} sweeps (the mirror "
+              f"{sweeps})")
+        graded[seed] = (err, err / scale, sweeps)
+    say("suite", "least-squares kernel, 21 x 20 f64 graded by rows against the SVD formula in "
+        "f64, max abs error (of the largest entry; sweeps, the card's = the mirror's): "
+        + ", ".join(f"seed {k}: {e:.3g} ({r:.3g}; {sw})" for k, (e, r, sw) in graded.items()))
     timed = {}
     for m, n in ((4, 3), (5, 4), (21, 20), (32, 31)):
         H, b = hessenberg(SEED, m, n)
@@ -2313,7 +2335,8 @@ def _lstsq_kernel(torch, dev):
     return {"name": "lstsq_min_norm", "route": "cuda", "source": "lbfgs_ffnn_torch/csrc/lstsq.cu",
             "replaces": "jnp.linalg.lstsq in lbfgs_ffnn_tpu/ops/iterative.py:113 "
                         "(no Pallas kernel; GMRES's least squares)",
-            "max_abs_err": max(e for e, _ in worst.values()), "ms": t["ms"],
+            "max_abs_err": max([e for e, _ in worst.values()]
+                               + [e for e, _, _ in graded.values()]), "ms": t["ms"],
             "replayed_ms": t["replayed_ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": t["library_ms"]}
 

@@ -22,8 +22,8 @@ the 21 x 20 f64 matrices graded by columns and by rows at
 The kernels: this tree's and, with ``--parent DIR`` (an unpacked copy of an
 earlier commit of the repo), that tree's kernel, built there by its own
 ``_build`` in a process of its own and called through its ``lstsq_launch``
-(the entry before it took a sweep count); timed in turns (parent, this
-tree, this tree, parent) in one process.
+(with no sweep count); timed in turns (parent, this tree, this tree,
+parent) in one process.
 
 ``--suite`` adds the f32 suite's BFGS+GMRES rows (Rosenbrock n = 4, Ackley
 n = 3, Rastrigin n = 500, ``max_iters`` 10, tol 1e-12, as ``chip_smoke.py``'s
@@ -38,10 +38,19 @@ at two restart-cycle budgets, the share the slope between them.
 
 ``--mirror`` prints only what the mirror says (it needs no card): sweeps and
 rounds at :data:`SHAPES` and its error against numpy's ``lstsq`` on the
-graded matrices.
+graded matrices (with ``--parent DIR``, that tree's mirror beside it).
+``--mirror --suite-matrices`` adds the f32 suite's BFGS+GMRES rows run on
+the CPU (the plain version solves there, so the trajectories are the
+CPU's): every ``(H, b)`` that reaches the
+least-squares step, recorded by a wrapper the study puts in place of
+``ops.iterative``'s ``lstsq_min_norm`` for the run alone, goes through this
+tree's mirror and, with ``--parent DIR``, that tree's mirror (its
+``ops/cuda_lstsq.py`` loaded from the file): per row, the calls and the
+distinct matrices among them, the sweeps and the error against numpy's
+``lstsq`` in f64 with f32's cutoff (``rcond = eps32 max(m, n)``, JAX's).
 
 Usage: python -m lbfgs_ffnn_torch.experiments.lstsq_study [--parent DIR]
-       [--suite] [--reps N] [--json FILE] [--mirror]
+       [--suite] [--reps N] [--json FILE] [--mirror [--suite-matrices]]
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -68,29 +78,127 @@ SUITE_ITERS = 10  # chip_smoke.py's SUITE_F32_GMRES_ITERS
 SHARE_CYCLES = (10, 30)  # GMRES restart cycles in the two profiled iterations
 
 
-def mirror_report() -> dict:
+def mirror_report(parent: Path | None = None) -> dict:
     """The mirror's sweeps and rounds at :data:`SHAPES` (f32, f64) and its
-    error against numpy's ``lstsq`` on the graded matrices."""
+    error against numpy's ``lstsq`` on the graded matrices; with ``parent``,
+    that tree's mirror beside it."""
     from lbfgs_ffnn_torch.ops.cuda_lstsq import hessenberg, jacobi_mirror
 
+    mirrors = {"mirror": jacobi_mirror}
+    if parent is not None:
+        mirrors["parent's mirror"] = tree_mirror(parent)
     out = {"shapes": {}, "graded": {}}
     for m, n in SHAPES:
         H, b = hessenberg(SEED, m, n)
         for dt in (np.float32, np.float64):
-            _, sweeps, rounds = jacobi_mirror(H.astype(dt), b.astype(dt))
-            out["shapes"][f"{m}x{n} {dt.__name__}"] = (sweeps, rounds)
-            print(f"mirror {m} x {n} {dt.__name__}: {sweeps} sweeps, {rounds} rounds", flush=True)
+            for label, mirror in mirrors.items():
+                _, sweeps, rounds = mirror(H.astype(dt), b.astype(dt))
+                out["shapes"][f"{label} {m}x{n} {dt.__name__}"] = (sweeps, rounds)
+                print(f"{label} {m} x {n} {dt.__name__}: {sweeps} sweeps, {rounds} rounds",
+                      flush=True)
     for graded in ("columns", "rows"):
         for seed in GRADED_SEEDS:
             H, b = hessenberg(seed, 21, 20, graded=graded)
             ref = np.linalg.lstsq(H, b, rcond=None)[0]
-            y, sweeps, _ = jacobi_mirror(H, b)
-            err = float(np.abs(y - ref).max() / np.abs(ref).max())
-            out["graded"][f"{graded} {seed}"] = {"cond": float(np.linalg.cond(H)), "error": err,
-                                                 "sweeps": sweeps}
-            print(f"mirror 21 x 20 f64 graded by {graded}, seed {seed}, cond "
-                  f"{np.linalg.cond(H):.3g}: error {err:.3g} (max |y - numpy lstsq| / max |numpy "
-                  f"lstsq|), {sweeps} sweeps", flush=True)
+            for label, mirror in mirrors.items():
+                y, sweeps, _ = mirror(H, b)
+                err = float(np.abs(y - ref).max() / np.abs(ref).max())
+                out["graded"][f"{label} {graded} {seed}"] = {
+                    "cond": float(np.linalg.cond(H)), "error": err, "sweeps": sweeps}
+                print(f"{label} 21 x 20 f64 graded by {graded}, seed {seed}, cond "
+                      f"{np.linalg.cond(H):.3g}: error {err:.3g} (max |y - numpy lstsq| / max "
+                      f"|numpy lstsq|), {sweeps} sweeps", flush=True)
+    return out
+
+
+def suite_matrices(iters: int = SUITE_ITERS) -> dict:
+    """Every ``(H, b)`` (numpy, f32) that reaches the least-squares step in
+    the f32 suite's BFGS+GMRES rows, run on the CPU: ``{case: [(H, b),
+    ...]}`` in call order, recorded by a wrapper in place of
+    ``ops.iterative``'s ``lstsq_min_norm`` for these runs alone."""
+    from lbfgs_ffnn_torch.experiments.run_deterministic_suite import TOL
+    from lbfgs_ffnn_torch.ops import iterative
+
+    tb = importlib.import_module("lbfgs_ffnn_torch.solvers.bfgs")
+    opts = tb.BFGSOptions(max_iters=iters, tol=TOL, linear_solver="gmres")
+    plain = iterative.lstsq_min_norm
+    calls: list = []
+
+    def recorded(H, b):
+        calls.append((H.numpy().copy(), b.numpy().copy()))
+        return plain(H, b)
+
+    out = {}
+    iterative.lstsq_min_norm = recorded
+    try:
+        for case, (problem, x0) in suite_cases(torch.device("cpu")).items():
+            calls = []
+            res = tb.bfgs(problem, x0, opts=opts)
+            out[case] = calls
+            print(f"suite f32 BFGS+GMRES {case} on the CPU: {res.n_iters} iterations, "
+                  f"{len(calls)} least-squares calls", flush=True)
+    finally:
+        iterative.lstsq_min_norm = plain
+    return out
+
+
+def tree_mirror(root: Path):
+    """``jacobi_mirror`` of the tree at ``root``: its ``ops/cuda_lstsq.py``
+    loaded from the file under a name of its own (the mirror is numpy)."""
+    path = root / "lbfgs_ffnn_torch" / "ops" / "cuda_lstsq.py"
+    spec = importlib.util.spec_from_file_location("tree_cuda_lstsq", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.jacobi_mirror
+
+
+def suite_mirror_report(parent: Path | None) -> dict:
+    """This tree's mirror and ``parent``'s on every matrix of
+    :func:`suite_matrices`: per row, the calls, the distinct finite
+    matrices (a NaN H, which the solve's NaN leaves, is counted apart), and
+    per mirror the sweeps (mean over the calls, min, max) and the error
+    (max |y - ref| / max |ref|, median and max over the distinct matrices;
+    ref numpy's ``lstsq`` in f64 with f32's cutoff)."""
+    from lbfgs_ffnn_torch.ops.cuda_lstsq import jacobi_mirror
+
+    mirrors = {"new": jacobi_mirror}
+    if parent is not None:
+        mirrors = {"parent": tree_mirror(parent), **mirrors}
+    out = {}
+    for case, calls in suite_matrices().items():
+        distinct: dict = {}
+        finite = [(H, b) for H, b in calls if np.isfinite(H).all() and np.isfinite(b).all()]
+        for H, b in finite:
+            key = H.tobytes() + b.tobytes()
+            if key in distinct:
+                distinct[key][2] += 1
+            else:
+                distinct[key] = [H, b, 1]
+        row = {"calls": len(calls), "non_finite": len(calls) - len(finite),
+               "distinct": len(distinct),
+               "shape": "x".join(map(str, calls[0][0].shape)) if calls else None}
+        for label, mirror in mirrors.items():
+            sweeps, errs, weights = [], [], []
+            for H, b, count in distinct.values():
+                m, n = H.shape
+                ref = np.linalg.lstsq(H.astype(np.float64), b.astype(np.float64),
+                                      rcond=float(np.finfo(np.float32).eps) * max(m, n))[0]
+                y, swept, _ = mirror(H, b)
+                scale = np.abs(ref).max()
+                errs.append(float(np.abs(y - ref).max() / scale) if scale > 0 else 0.0)
+                sweeps.append(swept)
+                weights.append(count)
+            row[label] = {"sweeps_mean": float(np.average(sweeps, weights=weights)),
+                          "sweeps_min": int(min(sweeps)), "sweeps_max": int(max(sweeps)),
+                          "error_median": float(np.median(errs)), "error_max": float(max(errs))}
+        out[case] = row
+        print(f"suite f32 BFGS+GMRES {case} ({row['shape']}), CPU trajectory: {row['calls']} "
+              f"calls ({row['non_finite']} not finite, left out), {row['distinct']} distinct "
+              "matrices; " + "; ".join(
+                  f"{label} mirror {r['sweeps_mean']:.2f} sweeps a call ({r['sweeps_min']}-"
+                  f"{r['sweeps_max']}), error against numpy lstsq median {r['error_median']:.3g}"
+                  f" max {r['error_max']:.3g}"
+                  for label, r in row.items() if isinstance(r, dict)), flush=True)
     return out
 
 
@@ -137,14 +245,15 @@ def parent_kernel(root: Path):
     """``fn(H, b)`` launching the least-squares kernel of the tree at
     ``root``: built there by that tree's ``_build`` (a process of its own,
     which imports that tree's package) and called through its
-    ``lstsq_launch(elem_bytes, H, b, y, m, n, stream, launches)``, on
-    contiguous CUDA tensors."""
+    ``lstsq_launch(elem_bytes, H, b, y, m, n, stream, launches, sweeps)``
+    with no sweep count (an entry without that argument ignores the null
+    after its last), on contiguous CUDA tensors."""
     code = "from lbfgs_ffnn_torch import _build; print(_build.build('lstsq').path)"
     built = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                            env={**os.environ, "PYTHONPATH": str(root)}, check=True)
     lib = ctypes.CDLL(built.stdout.strip().splitlines()[-1])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstsq_launch.argtypes = [i, p, p, p, i, i, p, p]
+    lib.lstsq_launch.argtypes = [i, p, p, p, i, i, p, p, p]
     lib.lstsq_launch.restype = i
     count = torch.zeros(1, dtype=torch.int32, device="cuda")
 
@@ -152,7 +261,7 @@ def parent_kernel(root: Path):
         y = torch.empty(H.shape[1], dtype=H.dtype, device=H.device)
         rc = lib.lstsq_launch(H.element_size(), H.data_ptr(), b.data_ptr(), y.data_ptr(),
                               *H.shape, torch.cuda.current_stream().cuda_stream,
-                              count.data_ptr())
+                              count.data_ptr(), None)
         if rc != 0:
             raise RuntimeError(f"the parent's lstsq_launch failed: CUDA error {rc}")
         return y
@@ -329,12 +438,19 @@ def main(argv=None) -> dict:
     parser.add_argument("--reps", type=int, default=200, help="calls per events timing")
     parser.add_argument("--json", default=None, metavar="FILE", help="write the results here")
     parser.add_argument("--mirror", action="store_true", help="the mirror only (no card)")
+    parser.add_argument("--suite-matrices", action="store_true",
+                        help="with --mirror: the mirrors on the f32 suite's GMRES matrices (CPU)")
     args = parser.parse_args(argv)
+    if args.suite_matrices and not args.mirror:
+        parser.error("--suite-matrices goes with --mirror")
     if args.suite_here:  # the child of suite_in: this process's package only
         dev = torch.device("cuda")
         results = {"rows": suite_rows(dev), "share": cycle_share(dev)}
     else:
-        results = {"mirror": mirror_report()}
+        parent = None if args.parent is None else Path(args.parent).resolve()
+        results = {"mirror": mirror_report(parent)}
+        if args.suite_matrices:
+            results["suite_matrices"] = suite_mirror_report(parent)
     if not (args.mirror or args.suite_here):
         if not torch.cuda.is_available():
             raise SystemExit("lstsq_study needs an NVIDIA GPU (or --mirror)")

@@ -6,14 +6,15 @@ Counterpart of ``jnp.linalg.lstsq(H, beta)`` in
 solution through an SVD, singular values below ``eps * max(M, N)`` of the
 largest (and exact zeros) treated as zero. :func:`lstsq_plain` is that
 formula in torch (``torch.linalg.svd``); :func:`lstsq_min_norm` calls it for
-CPU tensors and launches ``lstsq_min_norm_kernel`` (``csrc/lstsq.cu``, a
-one-sided Jacobi SVD in one block of ceil(n / 2) warps, each rotating one
-column pair of a round-robin round, whose header says why) for CUDA
+CPU tensors and launches ``lstsq_min_norm_kernel`` (``csrc/lstsq.cu``: a
+Givens triangle of H's rows, b carried, then a one-sided Jacobi SVD on the
+triangle's rows in one block of ceil(min(m, n) / 2) warps, each rotating
+one row pair of a round-robin round; its header says why rows) for CUDA
 tensors: on the card ``torch.linalg.lstsq`` has only the QR route (gels), which a
 rank-deficient H (a happy breakdown) defeats, and the SVD routes read a
 flag on the host, which a captured GMRES cannot do. A CUDA tensor the
 kernel does not take raises; nothing falls back. :func:`jacobi_mirror` is
-the kernel's arithmetic in numpy, in its order (the schedule
+the kernel's arithmetic in numpy, in its order (the triangle, the schedule
 :func:`round_robin`, the carried norms, the stop test), for the sweeps and
 rounds a matrix takes; :func:`hessenberg` makes the seeded GMRES-shaped
 matrices the kernel is tested and measured on.
@@ -140,10 +141,10 @@ lstsq_min_norm.LAUNCHES = LaunchCount()
 
 
 def round_robin(n: int) -> list[list[tuple[int, int]]]:
-    """The kernel's schedule over ``n`` columns, a zero dummy column added
-    where ``n`` is odd: ``N - 1`` rounds of ``N / 2`` disjoint pairs ``(p,
-    q)``, ``p < q``, pair ``w`` of a round being warp ``w``'s; column ``N -
-    1`` stays, the others turn."""
+    """The kernel's schedule over ``n`` rows, a dummy row added where ``n``
+    is odd: ``N - 1`` rounds of ``N / 2`` disjoint pairs ``(p, q)``, ``p <
+    q``, pair ``w`` of a round being warp ``w``'s; row ``N - 1`` stays, the
+    others turn."""
     N = n + n % 2
     M = N - 1
     rounds = []
@@ -161,40 +162,78 @@ def _tree_sum(x: np.ndarray) -> np.ndarray:
     return x[..., 0]
 
 
-def _sweeps(A: np.ndarray, V: np.ndarray, rows: int) -> tuple[int, int]:
-    """The kernel's sweep loop on the columns ``A`` (N, 32), rotating ``V``
-    alike, in place; returns ``(sweeps, rounds)``."""
-    dt = A.dtype.type
-    tol = dt(np.finfo(dt).eps) * np.sqrt(dt(rows))
+def _pow2(big: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's ``pow2``: the powers of two ``S`` and ``1 / S`` that
+    bring ``big`` (>= 0) to [1, 2), from its exponent bits, clamped so both
+    stay normal."""
+    big = np.asarray(big)
+    if big.dtype == np.float64:
+        u, shift, top = np.uint64, 52, 2046
+    else:
+        u, shift, top = np.uint32, 23, 254
+    e = np.clip((big.view(u) >> u(shift)) & u(top + 1), 1, top - 1).astype(u)
+    return (((u(top) - e) << u(shift)).view(big.dtype), (e << u(shift)).view(big.dtype))
+
+
+def _hyp(x, y):
+    """The kernel's ``hyp``: ``sqrt(xs^2 + ys^2) / S``, ``xs = x S``, ``ys =
+    y S``."""
+    S, Sinv = _pow2(np.fmax(np.abs(x), np.abs(y)))
+    xs, ys = x * S, y * S
+    return np.sqrt(xs * xs + ys * ys) * Sinv
+
+
+def _triangle(R: np.ndarray, m: int, n: int) -> None:
+    """The kernel's Givens triangle on the rows ``R`` (32, 33: H's ``n``
+    entries, then b's), in place: for each column ``j < min(n, m - 1)``,
+    each row ``i > j`` whose entry ``(i, j)`` is not zero, in increasing
+    ``i``, is rotated against row ``j`` so that ``(i, j)`` becomes exactly 0
+    and ``(j, j)`` exactly ``hypot``. On GMRES's upper Hessenberg H that is
+    one rotation a column, rows ``j`` and ``j + 1``."""
+    dt = R.dtype.type
+    for j in range(min(n, m - 1)):
+        rows = [i for i in range(j + 1, m) if R[i, j] != 0]  # NaN rotates, as in the kernel
+        a = R[j, j]
+        for i in rows:
+            c = R[i, j]
+            r = _hyp(a, c)[()]
+            inv = dt(1) / r
+            cs, sn = a * inv, c * inv
+            rj, ri = R[j].copy(), R[i].copy()
+            R[j], R[i] = cs * rj + sn * ri, cs * ri - sn * rj
+            R[j, j], R[i, j] = r, dt(0)
+            a = r
+
+
+def _sweeps(R: np.ndarray, N: int, n: int) -> tuple[int, int]:
+    """The kernel's sweep loop on the first ``N`` rows of ``R`` (H's ``n``
+    entries, then b's, which the rotations carry and the dot products leave
+    out), in place; returns ``(sweeps, rounds)``."""
+    dt = R.dtype.type
+    tol = dt(np.finfo(dt).eps) * np.sqrt(dt(n))
     tol2 = tol * tol
-    nrm = np.zeros(A.shape[0], dt)
-    schedule = round_robin(A.shape[0])
+    in_h = np.arange(MAX_DIM) < n
+    nrm = np.zeros(N, dt)
+    schedule = round_robin(N)
     rounds = 0
     with np.errstate(all="ignore"):  # NaNs spread as the kernel's do
         for sweep in range(1, MAX_SWEEPS + 1):
             rotated = False
             for r, pairs in enumerate(schedule):
                 P, Q = np.array(pairs).T
-                ap, aq = A[P], A[Q]
-                gamma = _tree_sum(ap * aq)
-                if r == 0:  # every column once: its norm afresh
-                    alpha, beta = _tree_sum(ap * ap), _tree_sum(aq * aq)
+                ap, aq = R[P], R[Q]
+                hp, hq = np.where(in_h, ap[:, :MAX_DIM], 0), np.where(in_h, aq[:, :MAX_DIM], 0)
+                gamma = _tree_sum(hp * hq)
+                if r == 0:  # every row once: its norm afresh
+                    alpha, beta = _tree_sum(hp * hp), _tree_sum(hq * hq)
                 else:
                     alpha, beta = nrm[P], nrm[Q]
                 rot = ~((gamma == 0) | (gamma * gamma <= (tol2 * alpha) * beta))
                 rounds += 1
                 rotated |= bool(rot.any())
-                # the kernel's rotation(): f64 takes c from rsqrt, 1 / sqrt here
-                d = beta - alpha
-                g2 = dt(2) * gamma
-                t = g2 / (np.abs(d) + np.hypot(d, g2))
-                t = np.where(np.signbit(d), -t, t).astype(dt)
-                c = dt(1) / np.sqrt(dt(1) + t * t)
-                s = c * t
+                t, c, s = _rotation(alpha, beta, gamma)
                 w, cc, ss = rot[:, None], c[:, None], s[:, None]
-                vp, vq = V[P], V[Q]
-                A[P], A[Q] = np.where(w, cc * ap - ss * aq, ap), np.where(w, ss * ap + cc * aq, aq)
-                V[P], V[Q] = np.where(w, cc * vp - ss * vq, vp), np.where(w, ss * vp + cc * vq, vq)
+                R[P], R[Q] = np.where(w, cc * ap - ss * aq, ap), np.where(w, ss * ap + cc * aq, aq)
                 nrm[P] = np.where(rot, alpha - t * gamma, alpha)
                 nrm[Q] = np.where(rot, beta + t * gamma, beta)
             if not rotated:
@@ -202,33 +241,56 @@ def _sweeps(A: np.ndarray, V: np.ndarray, rows: int) -> tuple[int, int]:
     return sweep, rounds
 
 
+def _rotation(alpha, beta, gamma):
+    """The kernel's ``rotation``: ``(t, c, s)`` from ``d = beta - alpha`` and
+    ``g = sign(d) 2 gamma``, both scaled by :func:`_pow2`'s ``S``; ``h =
+    sqrt(d^2 + g^2)``, ``u = |d| + h``, ``w = sqrt(u^2 + g^2)``, ``q = 1 /
+    (u w)``, ``t = g w q``, ``c = u u q``, ``s = g u q``."""
+    dt = alpha.dtype.type
+    d = beta - alpha
+    g2 = dt(2) * gamma
+    S, _ = _pow2(np.fmax(np.abs(d), np.abs(g2)))
+    ds = d * S
+    g = np.where(np.signbit(d), -(g2 * S), g2 * S)
+    h = np.sqrt(ds * ds + g * g)
+    u = np.abs(ds) + h
+    w = np.sqrt(u * u + g * g)
+    q = dt(1) / (u * w)
+    return (g * w) * q, (u * u) * q, (g * u) * q
+
+
 def jacobi_mirror(H: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, int, int]:
     """The kernel's arithmetic in numpy, in the kernel's order and in
     ``H``'s dtype (float32 or float64): ``(y, sweeps, rounds)``, ``rounds``
     counting every round of every sweep, the last sweep (which rotates
-    nothing) included. nvcc contracts products and sums into fused
-    multiply-adds where numpy rounds twice, so the kernel's bits may differ
-    in the last place."""
+    nothing) included. The rows of H, b's entry carried after each, go
+    through the Givens triangle (:func:`_triangle`), then one-sided Jacobi
+    sweeps on the first ``min(m, n)`` rows (the rest are zero in H's
+    columns: on GMRES's H the last row is the residual), and ``y`` is the
+    sum over the kept rows ``r_i`` of ``r_i c_i / |r_i|^2``, ``c_i`` the
+    row's b entry (its column ``n``): no V is formed. The kernel rounds
+    every operation on its own, as numpy does, and takes no approximate
+    square root or hypot, so its bits and its sweeps are the mirror's."""
     dt = H.dtype.type
     m, n = H.shape
-    N = n + n % 2
+    K = min(m, n)
+    N = K + K % 2
     with np.errstate(all="ignore"):  # NaNs spread as the kernel's do
-        c = np.zeros(MAX_DIM, dt)
-        c[:m] = b
-        A = np.zeros((N, MAX_DIM), dt)
-        A[:n, :m] = H.T
-        V = np.zeros((N, MAX_DIM), dt)
-        V[:n, :n] = np.eye(n, dtype=dt)
-        sweeps, rounds = _sweeps(A, V, m)
-        sigma = np.sqrt(_tree_sum(A * A))[:n]
-        dotb = _tree_sum(A * c)[:n]
+        R = np.zeros((MAX_DIM, MAX_DIM + 1), dt)
+        R[:m, :n] = H
+        R[:m, n] = b
+        _triangle(R, m, n)
+        sweeps, rounds = _sweeps(R, N, n)
+        rows = R[:K, :MAX_DIM]
+        h = np.where(np.arange(MAX_DIM) < n, rows, 0)
+        sigma = np.sqrt(_tree_sum(h * h))
         cutoff = dt(np.finfo(dt).eps) * dt(max(m, n)) * sigma.max()
         keep = (sigma > 0) & (sigma >= cutoff)
         safe = np.where(keep, sigma, dt(1))
-        coef = np.where(keep, (dotb / safe) / safe, dt(0))
+        coef = np.where(keep, (R[:K, n] / safe) / safe, dt(0))
         y = np.zeros(MAX_DIM, dt)
-        for j in range(n):
-            y = y + V[j] * coef[j]
+        for i in range(K):
+            y = y + rows[i] * coef[i]
     return y[:n], sweeps, rounds
 
 

@@ -343,15 +343,16 @@ def test_lstsq_kernel_matches_plain(cuda, dtype, shape, rank, graded):
 @pytest.mark.parametrize("seed", [100, 101, 102, 103])
 def test_lstsq_kernel_graded_by_rows(cuda, seed):
     """21 x 20 f64 graded by rows (cond 4e7 to 3e9), as a GMRES cycle whose
-    subdiagonal shrinks leaves H, against the plain version: to 1e-8 of its
-    largest entry, the bound ``tests/test_torch_lstsq.py`` holds the mirror
-    to at these seeds."""
-    from lbfgs_ffnn_torch.ops.cuda_lstsq import hessenberg, lstsq_min_norm, lstsq_plain
+    subdiagonal shrinks leaves H, against the plain version: to 1e-10 of its
+    largest entry, as every other f64 case, in the mirror's sweeps."""
+    from lbfgs_ffnn_torch.ops.cuda_lstsq import hessenberg, jacobi_mirror, launch, lstsq_plain
 
     H, b = hessenberg(seed, 21, 20, graded="rows")
-    y = lstsq_min_norm(torch.tensor(H, device=cuda), torch.tensor(b, device=cuda))
+    swept = torch.zeros(1, dtype=torch.int32, device=cuda)
+    y = launch(torch.tensor(H, device=cuda), torch.tensor(b, device=cuda), sweeps=swept)
     ref = lstsq_plain(torch.tensor(H), torch.tensor(b))
-    assert float((y.cpu() - ref).abs().max()) <= 1e-8 * float(ref.abs().max())
+    assert float((y.cpu() - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
+    assert int(swept) == jacobi_mirror(H, b)[1]
 
 
 @pytest.mark.cuda
@@ -370,6 +371,40 @@ def test_lstsq_kernel_sweeps_match_the_mirror(cuda):
     launch(Hd, bd, sweeps=swept)
     assert int(swept) == 2 * jacobi_mirror(H, b)[1]
     assert torch.equal(lstsq_min_norm(Hd, bd), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["hessenberg", "graded", "breakdown", "dense"])
+def test_lstsq_kernel_is_its_mirror_bitwise(cuda, dtype, kind):
+    """The kernel rounds every operation on its own and takes no
+    approximate root, so its solution is the numpy mirror's bit for bit, in
+    the mirror's sweeps: GMRES's shapes full rank, graded by rows and by
+    columns, after a happy breakdown, and dense matrices of every aspect."""
+    import numpy as np
+
+    from lbfgs_ffnn_torch.ops.cuda_lstsq import hessenberg, jacobi_mirror, launch
+
+    shapes = ((4, 3), (5, 4), (21, 20), (32, 31))
+    if kind == "hessenberg":
+        cases = [hessenberg(seed, *shape) for shape in shapes for seed in range(4)]
+    elif kind == "graded":
+        cases = [hessenberg(seed, *shape, graded=g) for shape in shapes for seed in (100, 101)
+                 for g in ("rows", "columns")]
+    elif kind == "breakdown":
+        cases = [hessenberg(rank, *shape, rank) for shape in shapes for rank in (1, 2)]
+    else:
+        rng = np.random.default_rng(0)
+        cases = [(rng.normal(size=shape), rng.normal(size=shape[0]))
+                 for shape in ((8, 6), (6, 8), (1, 5), (5, 1), (32, 32), (3, 32), (32, 17))]
+    name = str(dtype).split(".")[-1]
+    for H, b in cases:
+        H, b = H.astype(name), b.astype(name)
+        swept = torch.zeros(1, dtype=torch.int32, device=cuda)
+        y = launch(torch.tensor(H, device=cuda), torch.tensor(b, device=cuda), sweeps=swept)
+        want, sweeps, _ = jacobi_mirror(H, b)
+        assert int(swept) == sweeps, H.shape
+        assert np.array_equal(y.cpu().numpy(), want), H.shape
 
 
 @pytest.mark.cuda

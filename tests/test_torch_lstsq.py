@@ -1,15 +1,16 @@
 """The least-squares kernel's arithmetic (``csrc/lstsq.cu``) against JAX's
 ``jnp.linalg.lstsq``, through its numpy mirror
-(:func:`lbfgs_ffnn_torch.ops.cuda_lstsq.jacobi_mirror`: the round-robin
-schedule, the carried norms with their refresh each sweep, the squared stop
-test and the dummy column, in the kernel's order): seeded GMRES-shaped
-Hessenberg matrices, full rank, after happy breakdowns and graded by
-columns to a condition number of about 1e8, f64 to 1e-10 of the largest
-entry, exactly zero weight on the zero columns, converged within the
-kernel's sweep limit; graded by rows, the bound the one-sided Jacobi SVD
-reaches there; the schedule itself; and in f32 the card test's tolerance (4
-times the plain version's own error in f32, plus 10 eps) on the card test's
-matrices."""
+(:func:`lbfgs_ffnn_torch.ops.cuda_lstsq.jacobi_mirror`: the Givens triangle
+with b carried, then the round-robin schedule on the triangle's rows, the
+carried norms with their refresh each sweep, the squared stop test and the
+dummy row, in the kernel's order): seeded GMRES-shaped Hessenberg matrices,
+full rank, after happy breakdowns, graded by columns to a condition number
+of about 1e8 and graded by rows (as a GMRES cycle whose subdiagonal
+shrinks leaves H) to 6e9, and dense matrices taller and wider than they are
+Hessenberg, f64 to 1e-10 of the largest entry, exactly zero weight on the
+zero columns, converged within the kernel's sweep limit; the schedule
+itself; and in f32 the card test's tolerance (4 times the plain version's
+own error in f32, plus 10 eps) on the card test's matrices."""
 
 import _torch_threads  # noqa: F401  (caps torch's threads per test worker)
 
@@ -34,8 +35,8 @@ def _held_to_jax(H, b, rank, tol=1e-10):
     np.testing.assert_allclose(y, want, rtol=0, atol=tol * np.abs(want).max())
     assert np.all(y[rank:] == 0)  # the zero columns get exactly zero weight
     assert 1 <= sweeps < MAX_SWEEPS
-    n = H.shape[1]
-    assert rounds == sweeps * (n + n % 2 - 1)
+    k = min(H.shape)  # the rows swept: n on GMRES's (n + 1) x n H
+    assert rounds == sweeps * (k + k % 2 - 1)
 
 
 @pytest.mark.parametrize("shape,rank", CASES)
@@ -55,16 +56,28 @@ def test_mirror_matches_jax_graded(seed):
 
 
 @pytest.mark.parametrize("seed", GRADED_SEEDS)
-def test_mirror_graded_by_rows(seed):
-    """21 x 20 graded by rows (cond 4e7 to 3e9), as a GMRES cycle whose
-    subdiagonal shrinks leaves H. The one-sided Jacobi SVD on H's columns
-    loses relative accuracy on a matrix scaled by rows (the one-warp kernel
-    before it, in the cyclic order, did too: 4.5e-9 on the card at seed
-    100, against this kernel's 7.1e-9): held to 1e-8 of JAX's largest
-    entry, the bound it reaches at these seeds (PERF.md, open questions)."""
-    H, b = hessenberg(seed, 21, 20, graded="rows")
-    assert 1e7 < np.linalg.cond(H) < 1e10
-    _held_to_jax(H, b, 20, tol=1e-8)
+@pytest.mark.parametrize("shape,rank", [((21, 20), 20), ((32, 31), 31), ((21, 20), 7)])
+def test_mirror_graded_by_rows(shape, rank, seed):
+    """Graded by rows (21 x 20: cond 4e7 to 3e9; 32 x 31: 2e8 to 6e9), as a
+    GMRES cycle whose subdiagonal shrinks leaves H, and after a happy
+    breakdown at rank 7. One-sided Jacobi on H's columns loses relative
+    accuracy on such a matrix (7.2e-9 at 21 x 20); on the rows of the Givens
+    triangle it is held to 1e-10, as every other case."""
+    H, b = hessenberg(seed, *shape, rank, graded="rows")
+    if rank == shape[1]:
+        assert 1e7 < np.linalg.cond(H) < 1e10
+    _held_to_jax(H, b, rank)
+
+
+@pytest.mark.parametrize("shape", [(8, 6), (6, 8)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mirror_dense(shape, seed):
+    """A dense H, not Hessenberg, taller and wider: the triangle is then a
+    Givens QR (several rotations a column, the rows below ``min(m, n)``
+    zero), and the minimum-norm solution the same."""
+    rng = np.random.default_rng(seed)
+    H, b = rng.normal(size=shape), rng.normal(size=shape[0])
+    _held_to_jax(H, b, shape[1])
 
 
 @pytest.mark.parametrize("n", range(1, MAX_DIM + 1))
