@@ -9,7 +9,9 @@ Phases, each printing its lines (any failure raises and exits non-zero):
   2. build    - compiles lbfgs_ffnn_torch/csrc/two_loop.cu,
                 csrc/conditional.cu (CUDA graph IF nodes), csrc/lstsq.cu
                 (GMRES's least squares) and csrc/gather.cu (the out-of-core
-                row gather) for sm_90a, the four nvcc runs together, and
+                row gather) for sm_90a and, with g++, the native host
+                runtime lbfgs_ffnn_torch/runtime/runtime.cpp (IDX, CSV, the
+                batch streamer's producer), the five builds together, and
                 prints ptxas's report for every kernel (K1 and its
                 timestamped build, K2 at each group size k, K3, both pair
                 types; the least-squares kernel in f32 and f64; the gather)
@@ -130,9 +132,19 @@ Phases, each printing its lines (any failure raises and exits non-zero):
                 sequential (234 batches of 256 and a 96-row tail) and
                 random, captured = eager body bitwise over 3 epochs,
                 ms/epoch over 10, capture time, host syncs; (d)
-                sgd_streaming from the port's BatchStreamer (pinned), 2
-                epochs, its ms/epoch beside the resident SGD's; the phase's
-                time
+                sgd_streaming from the port's BatchStreamer (pinned): the
+                native producer (runtime.cpp, built with g++) streams each
+                of 3 epochs as a permutation of the 60,000 rows (an index
+                column; the 96-row short batch zero past its count), two
+                streamers with the same seed give equal batches, and
+                whether the stream equals the JAX package's native one
+                recorded on the CPU is printed (a reading: the C++ library
+                sets it); 2 epochs from the native and the numpy producer
+                in turns, ms/epoch each beside the resident SGD's, the
+                native losses = an eager replay of the same batches from a
+                second streamer (rtol 1e-5), each producer's step split
+                (next(), copy, update, the rest); the phase's time and
+                (d)'s
  15. traffic  - the bench's traffic variants at MNIST width (784-128-10,
                 N=60,000, m=10, Armijo): f32, bf16-traffic, u8-traffic,
                 u8-warm and u8-warm-nr, 100 iterations each on the
@@ -293,12 +305,14 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -413,25 +427,33 @@ def _kernel_label(name):
 
 
 def build_phase():
+    from concurrent.futures import ThreadPoolExecutor
+
     from lbfgs_ffnn_torch import _build
     from lbfgs_ffnn_torch.ops import control
+    from lbfgs_ffnn_torch.ops.cuda_gather import _lib as gather_lib
+    from lbfgs_ffnn_torch.ops.cuda_lstsq import _lib as lstsq_lib
     from lbfgs_ffnn_torch.ops.cuda_two_loop import _lib
+    from lbfgs_ffnn_torch.runtime import native
 
     t0 = time.perf_counter()
-    from lbfgs_ffnn_torch.ops.cuda_lstsq import _lib as lstsq_lib
-
-    from lbfgs_ffnn_torch.ops.cuda_gather import _lib as gather_lib
-
-    # one nvcc each, together
-    builds = _build.build_all(["two_loop", "conditional", "lstsq", "gather"])
+    # one nvcc each and g++ for the host runtime, together
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(_build.build_host, native.SRC)
+        builds = _build.build_all(["two_loop", "conditional", "lstsq", "gather"])
+        host = host.result()
     _lib()
     control._lib()
     lstsq_lib()
     gather_lib()
+    native.get_lib()
     for name, b in builds.items():
         say("build", f"{b.path.name} from csrc/{name}.cu with {' '.join(_build.NVCC_FLAGS)} "
             f"in {b.seconds:.2f} s (compiled={b.compiled})")
-    say("build", f"all four built in {time.perf_counter() - t0:.2f} s of wall time")
+    say("build", f"{host.path.name} from runtime/runtime.cpp (the native host runtime) with "
+        f"{_build.gxx()} {' '.join(_build.GXX_FLAGS)} in {host.seconds:.2f} s "
+        f"(compiled={host.compiled})")
+    say("build", f"all five built in {time.perf_counter() - t0:.2f} s of wall time")
     for name, what in (("lstsq", "least squares"), ("gather", "row gather")):
         for line in builds[name].log.splitlines():
             if "Used" in line or "spill" in line:
@@ -1761,7 +1783,8 @@ def first_order_phase(torch, dev, profile: bool, mnist_root):
     K1's and K2's launches by their L-BFGS and S-LBFGS rows counted; (b) GD
     momentum and Wolfe, captured, against the eager body and the host loop;
     (c) SGD sequential (with its tail) and random, captured, against the
-    eager body; (d) sgd_streaming from pinned buffers."""
+    eager body; (d) sgd_streaming from pinned buffers, the native producer
+    and the numpy one (:func:`_streamed_sgd`)."""
     import collections
     import importlib
 
@@ -1770,7 +1793,6 @@ def first_order_phase(torch, dev, profile: bool, mnist_root):
         mlp_batch_problem, mlp_init, mlp_problem, mlp_spec, take_batch,
     )
     from lbfgs_ffnn_torch.ops.cuda_two_loop import kernel_dispatch
-    from lbfgs_ffnn_torch.runtime import BatchStreamer
     from lbfgs_ffnn_torch.solvers.common import Resident, clear_graph_cache
 
     gd = importlib.import_module("lbfgs_ffnn_torch.solvers.gd")
@@ -1952,38 +1974,12 @@ def first_order_phase(torch, dev, profile: bool, mnist_root):
         f"ms of an epoch's 234 steps ({gather_us * 234 / 1e3 / sgd_ms['sequential'] * 100:.1f}% "
         "of the sequential epoch)")
 
-    # (d) sgd_streaming from the port's streamer, pinned buffers
-    opts = sgd.SGDOptions(epochs=2, batch_size=256, step_size=0.01, momentum=0.9)
-
-    def full_eval(w):
-        f, g = bp.value_and_grad(w, x, y)
-        return f, torch.linalg.norm(g)
-
-    f0 = float(bp.fun(w0, x, y))
-    x_h, y_h = x.cpu().numpy(), y.cpu().numpy()
-    with BatchStreamer(x_h, y_h, 256, seed=SEED, device=dev) as st:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rs = sgd.sgd_streaming(bp, w0, st, opts, full_eval_fn=full_eval)
-        torch.cuda.synchronize()
-        stream_ms = (time.perf_counter() - t0) * 1e3 / opts.epochs
-        pinned = st.pinned
-    lh = rs.loss_history.cpu().numpy()
-    check(pinned and bool(np.isfinite(lh).all()) and lh[1] < lh[0] < f0,
-          f"sgd_streaming: losses {f0} -> {lh} not finite and falling (pinned {pinned})")
-    say("first_order", f"sgd_streaming (BatchStreamer, pinned buffers, depth 4, b=256, N="
-        f"{N_TRAIN:,}, momentum 0.9, the full-data record): {stream_ms:.4f} ms/epoch (host "
-        f"clock, 2 epochs) against the resident SGD's {sgd_ms['random']:.4f} (random batches); "
-        f"full loss {f0:.6g} -> {lh[0]:.6g} -> {lh[1]:.6g}")
-    split = _stream_split(torch, dev, bp, w0, x_h, y_h, x, y)
-    steps = split.pop("steps")
-    rest = stream_ms / steps - sum(split.values())
-    say("first_order", f"a streamed step's host time, each part alone over one epoch's {steps} "
-        f"batches (host clock): {stream_ms / steps:.4f} ms per step streamed = "
-        + " + ".join(f"{k} {v:.4f}" for k, v in split.items())
-        + f" + {rest:.4f} not in the parts (the producer thread beside the update, the epoch "
-        "records)")
-    say("first_order", f"phase time {time.perf_counter() - t_phase:.1f} s")
+    # (d) sgd_streaming from the native producer (the default) and from the
+    # numpy fallback, pinned buffers
+    t_d = time.perf_counter()
+    stream_ms = _streamed_sgd(torch, dev, sgd, bp, w0, x, y, sgd_ms["random"])
+    say("first_order", f"phase time {time.perf_counter() - t_phase:.1f} s ((d) the streamed "
+        f"SGD {time.perf_counter() - t_d:.1f} s)")
     return {"runner": dict(runner_launches), "gd_ms": gd_ms, "sgd_ms": sgd_ms,
             "stream_ms": stream_ms}
 
@@ -2530,18 +2526,196 @@ def suite_phase(torch, dev, profile: bool, mnist_root):
     return {"K1": launches[COOPERATIVE], "lstsq": lstsq, "ms_iter": ms}
 
 
-def _stream_split(torch, dev, bp, w0, x_h, y_h, x, y) -> dict:
+def _streamed_sgd(torch, dev, sgd, bp, w0, x, y, resident_ms: float) -> dict:
+    """first_order (d): the native stream's gates (:func:`_stream_gates`);
+    ``sgd_streaming`` for 2 epochs from the native producer and from the
+    numpy fallback in turns (ms/epoch, host clock; each loss history finite
+    and falling), after an eager replay of the native batches from a second
+    streamer (:func:`_stream_replay`), which the native losses must equal
+    (rtol 1e-5); each producer's step split. Returns each
+    producer's faster ms/epoch."""
+    from lbfgs_ffnn_torch.runtime import BatchStreamer
+
+    x_h, y_h = x.cpu().numpy(), y.cpu().numpy()
+    _stream_gates(torch, dev, x_h, y_h)
+    opts = sgd.SGDOptions(epochs=2, batch_size=256, step_size=0.01, momentum=0.9)
+
+    def full_eval(w):
+        f, g = bp.value_and_grad(w, x, y)
+        return f, torch.linalg.norm(g)
+
+    f0 = float(bp.fun(w0, x, y))
+    # the reference, first: it also warms the update's and the record's kernels
+    replay = _stream_replay(torch, dev, bp, w0, x_h, y_h, opts, full_eval)
+    stream_ms, streamed = {"native": [], "fallback": []}, {}
+    gc_time = {"native": [], "fallback": []}  # (GC ms, collections) of each timed run
+    for producer in ("native", "fallback", "fallback", "native"):
+        with BatchStreamer(x_h, y_h, 256, seed=SEED, device=dev,
+                           force_fallback=producer == "fallback") as st:
+            check(st.native == (producer == "native") and st.pinned,
+                  f"sgd_streaming: the {producer} streamer is native={st.native}, pinned="
+                  f"{st.pinned}")
+            torch.cuda.synchronize()
+            with _GCClock() as clock:
+                t0 = time.perf_counter()
+                rs = sgd.sgd_streaming(bp, w0, st, opts, full_eval_fn=full_eval)
+                torch.cuda.synchronize()
+                stream_ms[producer].append((time.perf_counter() - t0) * 1e3 / opts.epochs)
+            gc_time[producer].append((clock.ms, clock.counts))
+        lh = rs.loss_history.cpu().numpy()
+        check(bool(np.isfinite(lh).all()) and lh[1] < lh[0] < f0,
+              f"sgd_streaming ({producer}): losses {f0} -> {lh} not finite and falling")
+        streamed[producer] = lh
+    check(np.allclose(streamed["native"], replay, rtol=1e-5, atol=0),
+          f"sgd_streaming (native): losses {streamed['native']} != the eager replay's {replay}")
+    say("first_order", f"sgd_streaming (BatchStreamer, pinned buffers, depth 4, b=256, N="
+        f"{N_TRAIN:,}, momentum 0.9, the full-data record), ms/epoch (host clock, 2 epochs, "
+        f"in turns native, fallback, fallback, native): native producer "
+        f"{stream_ms['native'][0]:.4f} / {stream_ms['native'][1]:.4f}, numpy fallback "
+        f"{stream_ms['fallback'][0]:.4f} / {stream_ms['fallback'][1]:.4f}, against the resident "
+        f"SGD's {resident_ms:.4f} (random batches); native full loss {f0:.6g} -> "
+        f"{streamed['native'][0]:.6g} -> {streamed['native'][1]:.6g} = an eager replay of the "
+        f"same batches from a second streamer (rtol 1e-5: {replay[0]:.6g}, {replay[1]:.6g}); "
+        f"fallback {streamed['fallback'][0]:.6g} -> {streamed['fallback'][1]:.6g}")
+    for producer in ("native", "fallback"):
+        split = _stream_split(torch, dev, bp, w0, x_h, y_h, x, y, producer == "fallback")
+        steps = split.pop("steps")
+        fast = int(np.argmin(stream_ms[producer]))
+        per_step = stream_ms[producer][fast] / steps
+        rest = per_step - sum(split.values())
+        gc_ms, gc_counts = gc_time[producer][fast]
+        say("first_order", f"a streamed step's host time, {producer} producer, each part alone "
+            f"over one epoch's {steps} batches (host clock): {per_step:.4f} ms per step "
+            f"streamed (its faster epoch) = " + " + ".join(f"{k} {v:.4f}"
+                                                            for k, v in split.items())
+            + f" + {rest:.4f} not in the parts (the producer beside the update, the epoch "
+            f"records); of that epoch pair, the interpreter's garbage collector took "
+            f"{gc_ms / (opts.epochs * steps):.4f} ms per step (collections by generation "
+            f"{gc_counts}, {len(gc.get_objects()):,} objects tracked); Python threads alive "
+            f"{threading.active_count()}")
+    return {k: min(v) for k, v in stream_ms.items()}
+
+
+class _GCClock:
+    """Host time spent in the interpreter's garbage collector, and its
+    collections by generation, while the context is open (gc.callbacks)."""
+
+    def __enter__(self):
+        self.ms, self.counts, self._t0 = 0.0, [0, 0, 0], None
+        gc.callbacks.append(self._hook)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._hook)
+
+    def _hook(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.counts[info["generation"]] += 1
+            self._t0 = None
+
+
+# The native stream's first 8 indices of epochs 0-3 at N_TRAIN, b = 256, seed
+# SEED, recorded from the JAX package's native library (g++ 12.2, libstdc++):
+# whether the card's machine draws the same (its libstdc++ sets
+# uniform_int_distribution) is a reading, not a gate.
+GOLDEN_STREAM = {0: [33916, 48328, 56320, 27968, 59877, 29321, 996, 15595],
+                 1: [43634, 11948, 43156, 51008, 38291, 6684, 54302, 29318],
+                 2: [9439, 52516, 42650, 56621, 20883, 28859, 48144, 50371],
+                 3: [11421, 27516, 54607, 13242, 7677, 36248, 44166, 32188]}
+
+
+def _stream_gates(torch, dev, x_h, y_h) -> None:
+    """The native stream at the main path's size (N_TRAIN rows, b = 256,
+    pinned): each of 3 epochs a permutation of the rows, the 96-row short
+    batch included (an index column streamed as x and y; the rows past a
+    short batch's count zero); two streamers with the same seed give equal
+    batches on the main path's data over 3 epochs; and, a reading, whether
+    the stream equals GOLDEN_STREAM."""
+    from lbfgs_ffnn_torch.runtime import BatchStreamer
+
+    n = len(x_h)
+    ids = np.arange(n, dtype=np.float32)[:, None]
+    seen, firsts, short = {}, {}, 0
+    with BatchStreamer(ids, ids, 256, seed=SEED, device=dev) as st:
+        check(st.native and st.pinned, f"the default streamer is native={st.native}")
+        while True:
+            xb, yb, count, epoch = st.next()
+            firsts.setdefault(epoch, xb[:8, 0].long().tolist())
+            if epoch == 3:
+                break
+            check(torch.equal(xb, yb) and not xb[count:].any(),
+                  f"epoch {epoch}: x and y rows differ, or rows past count {count} not zero")
+            seen.setdefault(epoch, []).append(xb[:count, 0].long().numpy())
+            short += count < 256
+    for e in range(3):
+        got = np.sort(np.concatenate(seen[e]))
+        check(np.array_equal(got, np.arange(n)), f"native stream: epoch {e} is not a "
+              f"permutation of {n} rows ({len(got)} rows, {len(np.unique(got))} distinct)")
+    check(short == (3 if n % 256 else 0), f"native stream: {short} short batches in 3 epochs")
+    batches = 0
+    with (BatchStreamer(x_h, y_h, 256, seed=SEED, device=dev) as a,
+          BatchStreamer(x_h, y_h, 256, seed=SEED, device=dev) as b):
+        while True:
+            ax, ay, ac, ae = a.next()
+            bx, by, bc, be = b.next()
+            check((ac, ae) == (bc, be) and torch.equal(ax, bx) and torch.equal(ay, by),
+                  f"two native streamers, seed {SEED}: batch {batches} differs")
+            batches += 1
+            if ae == 3:
+                break
+    say("first_order", f"native stream (N={n:,}, b=256, seed {SEED}, pinned): epochs 0-2 each "
+        f"a permutation of the rows ({short} short batches of {n % 256} rows, zero past "
+        f"count); two streamers with the same seed equal over {batches} batches of the "
+        f"main path's x and y; equals the JAX package's native stream recorded on the "
+        f"CPU (first 8 of epochs 0-3, a reading): {firsts == GOLDEN_STREAM}"
+        + ("" if firsts == GOLDEN_STREAM else f" (here {firsts})"))
+
+
+def _stream_replay(torch, dev, bp, w0, x_h, y_h, opts, full_eval) -> np.ndarray:
+    """``sgd_streaming``'s update written out here, eagerly, on the batches
+    of a second native streamer with the same seed (unpinned): the
+    full-data loss at each epoch's end."""
+    from lbfgs_ffnn_torch.runtime import BatchStreamer
+    from lbfgs_ffnn_torch.solvers.common import full_f32
+
+    vag = torch.func.grad_and_value(bp.fun_masked)
+    cols = torch.arange(256, device=dev)
+    losses, cur = [], 0
+    with full_f32(), torch.no_grad(), BatchStreamer(x_h, y_h, 256, seed=SEED) as st:
+        w, v = w0, torch.zeros_like(w0)
+        lr = torch.full((), opts.step_size, dtype=w.dtype, device=dev)
+        while True:
+            xb, yb, count, epoch = st.next()
+            if epoch != cur:
+                losses.append(float(full_eval(w)[0]))
+                cur = epoch
+                if opts.lr_decay_step > 0 and epoch % opts.lr_decay_step == 0:
+                    lr = lr * opts.lr_decay
+                if epoch >= opts.epochs:
+                    break
+            g, _loss = vag(w, xb.to(dev), yb.to(dev), (cols < count).to(w.dtype))
+            v = opts.momentum * v - lr * g
+            w = w + v
+    return np.asarray(losses)
+
+
+def _stream_split(torch, dev, bp, w0, x_h, y_h, x, y, force_fallback: bool) -> dict:
     """ms per step, host clock, over one epoch's batches, of each part of a
     ``sgd_streaming`` step alone: the stream's ``next()`` (its producer
-    alone), the batch's copy from a pinned buffer on a copy stream with its
-    event waited for, and the masked update (``grad_and_value`` of
-    ``fun_masked`` and the momentum step, as ``sgd_streaming`` runs it) on
-    a batch already on the card, the card synchronized at the end."""
+    alone: the native one's or, with ``force_fallback``, the numpy one's),
+    the batch's copy from a pinned buffer on a copy stream with its event
+    waited for, and the masked update (``grad_and_value`` of ``fun_masked``
+    and the momentum step, as ``sgd_streaming`` runs it) on a batch already
+    on the card, the card synchronized at the end."""
     from lbfgs_ffnn_torch.runtime import BatchStreamer
     from lbfgs_ffnn_torch.solvers.common import full_f32
 
     out, calls = {}, 0
-    with BatchStreamer(x_h, y_h, 256, seed=SEED, device=dev) as st:
+    with BatchStreamer(x_h, y_h, 256, seed=SEED, device=dev,
+                       force_fallback=force_fallback) as st:
         st.next()  # the producer has started
         t0 = time.perf_counter()
         while True:
@@ -3457,7 +3631,7 @@ def main() -> None:
         + "; GD N=60000 ms/iter: " + ", ".join(f"{k} {v:.4f}" for k, v in fo["gd_ms"].items())
         + "; SGD N=60000 b=256 ms/epoch: " + ", ".join(f"{k} {v:.4f}"
                                                        for k, v in fo["sgd_ms"].items())
-        + f", streamed {fo['stream_ms']:.4f}"
+        + ", streamed " + ", ".join(f"{k} {v:.4f}" for k, v in fo["stream_ms"].items())
         + "; traffic variants ms/iter: " + ", ".join(f"{k} {v:.4f}"
                                                      for k, v in traffic["ms_iter"].items())
         + "; GEMM pair us: " + ", ".join(f"{k} {v:.1f}" for k, v in traffic["pair"].items())

@@ -23,7 +23,10 @@ the hand-written row-gather kernel), the utilities (``utils``: diagnostics
 and a profiler trace), the ``models`` alias of the objectives, and the
 multi-device path on ``torch.distributed`` (``parallel``: meshes, the
 data-parallel problems, data-parallel S-LBFGS and Burgers, the
-parameter-sharded L-BFGS with its sharded and Gram-form two-loops).
+parameter-sharded L-BFGS with its sharded and Gram-form two-loops), and
+the native host runtime (``runtime``: ``runtime.cpp``, built with g++ at
+first use, for IDX reading, CSV writing and the batch streamer's
+producer).
 """
 
 from lbfgs_ffnn_torch.types import (

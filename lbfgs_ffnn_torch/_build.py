@@ -1,4 +1,4 @@
-"""Builds the port's CUDA sources with nvcc and loads them with ctypes.
+"""Builds the port's native sources and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` (``two_loop``: the kernels; ``conditional``: CUDA
 graph IF nodes for the captured solver iteration) exposes a plain C
@@ -7,10 +7,18 @@ interface and is compiled on first use into ``build/lib<name>.so`` with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v
 
-The library is rebuilt when the hash of its source and flags changes; the
-compiler's report (registers, shared memory, spills) is kept beside it as
-``build/lib<name>.log``. No PyTorch headers are compiled, so a build takes
-seconds. The wrappers that call into a library declare its ``argtypes``.
+Host C++ without CUDA (``runtime/runtime.cpp``, the native host runtime)
+goes through :func:`build_host` instead, with
+
+    g++ -std=c++20 -O3 -fPIC -shared -pthread
+
+(``$CXX`` in place of ``g++`` where it is set), so it builds where there is
+no nvcc. A library is rebuilt when the hash of its source, compiler and
+flags changes; the compiler's report (for nvcc: registers, shared memory,
+spills) is kept beside it as ``build/lib<name>.log``; a failed build raises
+with the compiler's stderr. No PyTorch headers are compiled, so a build
+takes seconds. The wrappers that call into a library declare its
+``argtypes``.
 """
 
 from __future__ import annotations
@@ -30,13 +38,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-std=c++20", "-O3", "-fPIC", "-shared", "-pthread")
 
 
 class Built(NamedTuple):
     path: Path
     seconds: float   # compile time; 0.0 when the cached library was current
     compiled: bool
-    log: str         # nvcc / ptxas report
+    log: str         # the compiler's report (nvcc: ptxas's)
 
 
 def nvcc() -> str:
@@ -51,10 +60,27 @@ def nvcc() -> str:
     return found
 
 
+def gxx() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++``."""
+    return os.environ.get("CXX") or "g++"
+
+
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless the cached library is current."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return _compile(CSRC / f"{name}.cu", name, nvcc(), NVCC_FLAGS)
+
+
+def build_host(src: Path) -> Built:
+    """Compile the host C++ file ``src`` with :func:`gxx` into
+    ``build/lib<stem>.so`` unless the cached library is current."""
+    return _compile(src, src.stem, gxx(), GXX_FLAGS)
+
+
+def _compile(src: Path, name: str, compiler: str, flags) -> Built:
+    """``compiler flags -o build/lib<name>.so src``, keyed by the hash of the
+    source, the compiler and the flags; raises with the compiler's stderr
+    when it fails."""
+    key = hashlib.sha256(src.read_bytes() + " ".join((compiler, *flags)).encode()).hexdigest()
     so = BUILD_DIR / f"lib{name}.so"
     stamp = BUILD_DIR / f"lib{name}.sha256"
     log = BUILD_DIR / f"lib{name}.log"
@@ -63,12 +89,16 @@ def build(name: str) -> Built:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    try:
+        proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+    except OSError as exc:
+        raise RuntimeError(f"{compiler} could not run on {src}: {exc}") from exc
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n{proc.stderr}")
+        raise RuntimeError(f"{Path(compiler).name} failed ({proc.returncode}) on {src}:\n"
+                           f"{proc.stderr}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees old or new, never half
     log.write_text(proc.stderr)
     stamp.write_text(key)

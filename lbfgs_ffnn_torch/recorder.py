@@ -7,16 +7,23 @@ the columns ``Iteration,Loss,GradNorm,TimeMs`` strided by ``log_interval``
 the measured whole-solve wall time spread uniformly over the iterations, so
 the last row holds the whole solve's time (cumulative, like the reference's
 column), unless the Launcher ran measured chunks (``timed_chunks``): then
-each row holds the measured cumulative time of its chunk. The JAX package's native CSV writer is not ported: this one is
-plain Python and writes the same text.
+each row holds the measured cumulative time of its chunk.
+
+As in the JAX package, the native runtime (``runtime.cpp``'s
+``csv_write_history``, ``%lld,%.17g,%.17g,%.17g``) writes a history
+without ``extra`` columns, and the Python writer
+(:func:`write_history_csv_plain`, the plain version the tests hold the
+library against) writes one with them, or one the library could not write.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 
+from lbfgs_ffnn_torch.runtime.native import get_lib
 from lbfgs_ffnn_torch.types import SolveResult
 
 
@@ -50,6 +57,22 @@ def write_history_csv(path, history: History, log_interval: int = 1,
     empty. ``extra`` maps further column names (``TrainAcc``, ``TestAcc``:
     the reference's plot tooling shows accuracy panels where they exist) to
     per-iteration arrays, written after TimeMs in its order."""
+    if log_interval <= 0 or history.n == 0:
+        return
+    if not extra:
+        cols = [np.ascontiguousarray(c, dtype=np.float64)
+                for c in (history.loss, history.gnorm, history.time_ms)]
+        p = ctypes.POINTER(ctypes.c_double)
+        rc = get_lib().csv_write_history(str(path).encode(), *(c.ctypes.data_as(p) for c in cols),
+                                         history.n, int(log_interval))
+        if rc == 0:
+            return
+    write_history_csv_plain(path, history, log_interval, extra)
+
+
+def write_history_csv_plain(path, history: History, log_interval: int = 1,
+                            extra: dict | None = None) -> None:
+    """:func:`write_history_csv` in Python: ``%.17g`` numbers."""
     if log_interval <= 0 or history.n == 0:
         return
     cols = {k: np.asarray(v, dtype=np.float64) for k, v in (extra or {}).items()}

@@ -35,10 +35,12 @@ def test_idx_readers_match_jax(idx_files, max_items):
     x_t = tidx.read_idx_images(root / "images.idx3-ubyte", max_items)
     x_j = jidx.read_idx_images(root / "images.idx3-ubyte", max_items)
     assert x_t.shape == x_j.shape == (n, 784) and x_t.dtype == np.float32
-    # The JAX native loader multiplies by float32(1/255) where numpy
+    # Both native loaders multiply by float32(1/255); the plain reader
     # divides by 255: the two may differ by one float32 ulp.
-    np.testing.assert_allclose(x_t, x_j, rtol=1.2e-7, atol=0)
-    np.testing.assert_array_equal(x_t, images[:n].reshape(n, -1) / np.float32(255.0))
+    np.testing.assert_array_equal(x_t, x_j)
+    x_p = tidx.read_idx_images_plain(root / "images.idx3-ubyte", max_items)
+    np.testing.assert_array_equal(x_p, images[:n].reshape(n, -1) / np.float32(255.0))
+    np.testing.assert_allclose(x_t, x_p, rtol=1.2e-7, atol=0)
     np.testing.assert_array_equal(
         tidx.read_idx_labels_u8(root / "labels.idx1-ubyte", max_items),
         jidx.read_idx_labels_u8(root / "labels.idx1-ubyte", max_items))
@@ -56,8 +58,10 @@ def test_write_idx_u8_same_bytes(tmp_path):
 
 def test_reader_rejects_non_idx(tmp_path):
     (tmp_path / "bad").write_bytes(b"\x89PNG....")
-    with pytest.raises(ValueError):
+    with pytest.raises(OSError, match=r"idx_query\(.*\) failed: -2"):  # JAX's native error
         tidx.read_idx_images(tmp_path / "bad")
+    with pytest.raises(ValueError):
+        tidx.read_idx_images_plain(tmp_path / "bad")
 
 
 def test_synthetic_images_bitwise_equal():

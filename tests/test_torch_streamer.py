@@ -1,11 +1,12 @@
-"""The port's BatchStreamer and sgd_streaming against the JAX package's, on
-the CPU:
+"""The port's BatchStreamer on its numpy stream (``force_fallback=True``)
+and sgd_streaming against the JAX package's, on the CPU (the native stream,
+the default of both, is held in ``tests/test_torch_runtime.py``):
 
 * three epochs of batches, with ``drop_last`` both ways, bitwise equal to
   JAX's ``BatchStreamer(force_fallback=True)`` (its numpy stream), the rows
   past a short batch's count zero;
-* ``sgd_streaming`` fed by the port's streamer against JAX's fed by the JAX
-  fallback streamer, in f32 (each package's own f32 arithmetic): the loss
+* ``sgd_streaming`` fed by the port's fallback streamer against JAX's fed by
+  the JAX fallback streamer, in f32 (each package's own f32 arithmetic): the loss
   and gradient-norm histories and the final loss to rtol 1e-6, with and
   without ``full_eval_fn``; and the zero-epoch case;
 * the streamer's checks, its close and its producer's failure.
@@ -47,7 +48,9 @@ X, Y, W0 = _data()
 def test_stream_equals_jax_fallback(drop_last):
     j = JStreamer(X, Y, B, seed=5, drop_last=drop_last, force_fallback=True)
     short = 0
-    with BatchStreamer(X, Y, B, seed=5, drop_last=drop_last, depth=3) as t:
+    with BatchStreamer(X, Y, B, seed=5, drop_last=drop_last, depth=3,
+                       force_fallback=True) as t:
+        assert not t.native
         while True:
             jx, jy, jc, je = j.next()
             tx, ty, tc, te = t.next()
@@ -83,7 +86,7 @@ def test_sgd_streaming_matches_jax(full_eval):
 
     rj = jsgd.sgd_streaming(jp, jnp.asarray(W0), JStreamer(X, Y, B, seed=5, force_fallback=True),
                             jsgd.SGDOptions(**kw), full_eval_fn=j_eval)
-    with BatchStreamer(X, Y, B, seed=5) as st:
+    with BatchStreamer(X, Y, B, seed=5, force_fallback=True) as st:
         rt = tsgd.sgd_streaming(tp, torch.tensor(W0), st, tsgd.SGDOptions(**kw),
                                 full_eval_fn=t_eval)
     assert rt.n_iters == int(rj.n_iters) == 3 and not bool(rt.converged)
@@ -114,8 +117,8 @@ def test_streamer_checks_closes_and_reports():
     st.close()  # idempotent
     with pytest.raises(RuntimeError):
         st.next()
-    bad = BatchStreamer(X, Y, B, depth=2)
-    bad._x = None  # the producer's next gather fails on it
+    bad = BatchStreamer(X, Y, B, depth=2, force_fallback=True)
+    bad._x = None  # the Python producer's next gather fails on it
     with pytest.raises(RuntimeError, match="producer failed"):
         for _ in range(4):
             bad.next()
