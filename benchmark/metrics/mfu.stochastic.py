@@ -1,0 +1,6 @@
+"""The stochastic window's required operations (benchmark.counts, from
+shapes and the solves' epochs) over its time at the f32 peak, %."""
+
+
+def read(ctx):
+    return ctx.flops_share()
