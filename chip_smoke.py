@@ -803,6 +803,18 @@ def _data_np(mnist_root):
     return x, y, source
 
 
+def _captures() -> int:
+    """Captures of the resident driver so far (the tracer's counter)."""
+    from lbfgs_ffnn_torch.utils import profiling
+    return profiling.counter("captures")
+
+
+def _capture_s() -> float:
+    """Seconds the latest capture took, its eager runs included."""
+    from lbfgs_ffnn_torch.utils import profiling
+    return profiling.last("resident.capture").seconds
+
+
 def _reset(launches):
     for k in launches:
         launches[k] = 0
@@ -1023,7 +1035,6 @@ def deep_phase(torch, profile: bool):
     from lbfgs_ffnn_torch.ops.cuda_two_loop import (
         COOPERATIVE, STREAMING, group_size, two_loop_cuda,
     )
-    from lbfgs_ffnn_torch.solvers.common import Resident
     from lbfgs_ffnn_torch.solvers.lbfgs import RESIDENT_CHUNK, clear_graph_cache
 
     n_pad = -(-_n_params(DEEP_DIMS) // 128) * 128
@@ -1042,11 +1053,11 @@ def deep_phase(torch, profile: bool):
         for _, cfg, report in run_mnist.main(base + ["--only", "FASHION_GD"]):
             runs["gd"] = (cfg, report)
         _reset(two_loop_cuda.LAUNCHES)
-        captures = Resident.captures
+        captures = _captures()
         kernel_runs = run_mnist.main(base + ["--bf16-ring", "--only", "m100"])
         launches = dict(two_loop_cuda.LAUNCHES)
         # each capture runs the body once eagerly first: one direction more
-        captures = Resident.captures - captures
+        captures = _captures() - captures
         for _, cfg, report in kernel_runs:
             runs["bf16" if cfg.pair_dtype else "f32"] = (cfg, report)
         for _, cfg, report in run_mnist.main(
@@ -1094,12 +1105,12 @@ def deep_phase(torch, profile: bool):
             for key, results in solves.items():
                 cfg = dataclasses.replace(runs[key][0], seed=runs[key][0].seed + s,
                                           write_csv=False)
-                c0 = Resident.captures  # this Launcher's problem captures anew
+                c0 = _captures()  # this Launcher's problem captures anew
                 rep = launcher.train("lbfgs", cfg, verbose=False)
                 results.append(rep.result)
                 if not key.startswith("plain"):
                     seed_directions += (rep.result.n_iters + rep.warmup_iters
-                                        + Resident.captures - c0)
+                                        + _captures() - c0)
         seed_launches = dict(two_loop_cuda.LAUNCHES)
         check(seed_launches[STREAMING] == seed_directions and seed_launches[COOPERATIVE] == 0,
               f"seed runs: launches {seed_launches} != {seed_directions} directions through K2")
@@ -1360,7 +1371,7 @@ def stochastic_phase(torch, dev, profile: bool, mnist_root):
     from lbfgs_ffnn_torch.launcher import Launcher, UnifiedConfig
     from lbfgs_ffnn_torch.objectives.mlp import mlp_batch_problem, mlp_init, mlp_spec
     from lbfgs_ffnn_torch.ops.cuda_two_loop import COOPERATIVE, kernel_dispatch, two_loop_cuda
-    from lbfgs_ffnn_torch.solvers.common import Resident, clear_graph_cache, clone
+    from lbfgs_ffnn_torch.solvers.common import clear_graph_cache, clone
 
     sl = importlib.import_module("lbfgs_ffnn_torch.solvers.slbfgs")  # the module, not slbfgs()
 
@@ -1411,7 +1422,7 @@ def stochastic_phase(torch, dev, profile: bool, mnist_root):
     runs["captured"](opts)  # captures the epoch (warm-up included), then solves
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    capture_s = Resident.last_capture_s
+    capture_s = _capture_s()
     peak = torch.cuda.max_memory_allocated() / 2**30
     runs["eager"](opts._replace(epochs=2))  # warm-up
 
@@ -1498,7 +1509,7 @@ def stochastic_phase(torch, dev, profile: bool, mnist_root):
     launcher.build_network().set_data(Dataset(x_np, y_np, x_np[:0], y_np[:0]))
     cfg = UnifiedConfig(name="SLBFGS_60k", max_iters=LAUNCHER_EPOCHS, write_csv=False)
     _reset(two_loop_cuda.LAUNCHES)
-    c0 = Resident.captures
+    c0 = _captures()
     t0 = time.perf_counter()
     rep = launcher.train("slbfgs", cfg, verbose=False)
     train_s = time.perf_counter() - t0
@@ -1507,14 +1518,14 @@ def stochastic_phase(torch, dev, profile: bool, mnist_root):
     lh = rep.result.loss_history.cpu().numpy()
     check(rep.result.n_iters == LAUNCHER_EPOCHS and bool(np.isfinite(lh).all()),
           f"Launcher S-LBFGS: {rep.result.n_iters} epochs, losses {lh}")
-    captures = Resident.captures - c0
+    captures = _captures() - c0
     big_capture = captures * _capture_steps(sl, big_inner)
     want_big = (LAUNCHER_EPOCHS + rep.warmup_iters) * big_inner + big_capture
     check(big_launches[COOPERATIVE] == want_big,
           f"Launcher S-LBFGS: launches {big_launches} != ({LAUNCHER_EPOCHS} + "
           f"{rep.warmup_iters} warm-up) x {big_inner} + {big_capture} (the capture)")
     say("stochastic", f"Launcher S-LBFGS, N={N_TRAIN:,}, b={cfg.batch_size} (m_inner="
-        f"{big_inner}): capture {Resident.last_capture_s:.2f} s ({_graphs_note(sl, big_inner)});"
+        f"{big_inner}): capture {_capture_s():.2f} s ({_graphs_note(sl, big_inner)});"
         f" train() {train_s:.2f} s; {rep.ms_per_iter:.2f} ms/epoch (CUDA events, "
         f"{LAUNCHER_EPOCHS} epochs), losses {[round(float(v), 6) for v in lh]}; K1 launches "
         f"{big_launches[COOPERATIVE]} = ({LAUNCHER_EPOCHS} + {rep.warmup_iters} warm-up) x "
@@ -1581,7 +1592,6 @@ def pinn_phase(torch, dev, profile: bool, burgers_iters=BURGERS_ITERS):
         burgers_points, burgers_problem, default_burgers_spec, oscillator_problem, pinn_init,
     )
     from lbfgs_ffnn_torch.ops.cuda_two_loop import COOPERATIVE, STREAMING, two_loop_cuda
-    from lbfgs_ffnn_torch.solvers.common import Resident
 
     sl = importlib.import_module("lbfgs_ffnn_torch.solvers.lbfgs")
     ttl = sys.modules["lbfgs_ffnn_torch.ops.two_loop"]
@@ -1607,10 +1617,10 @@ def pinn_phase(torch, dev, profile: bool, burgers_iters=BURGERS_ITERS):
     eager = sl._lbfgs_resident_eager(problem, w0, pts, opts)
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
-    captures = Resident.captures
+    captures = _captures()
     sl.lbfgs(problem, w0, pts, opts)  # captures the iteration
-    capture_s = Resident.last_capture_s
-    check(Resident.captures == captures + 1, "the first captured Burgers solve did not capture")
+    capture_s = _capture_s()
+    check(_captures() == captures + 1, "the first captured Burgers solve did not capture")
     _reset(two_loop_cuda.LAUNCHES)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1690,13 +1700,13 @@ def pinn_phase(torch, dev, profile: bool, burgers_iters=BURGERS_ITERS):
         say("pinn", f"Burgers (b): python -m lbfgs_ffnn_torch.experiments.run_burgers "
             f"{' '.join(argv)}")
         _reset(two_loop_cuda.LAUNCHES)
-        captures = Resident.captures
+        captures = _captures()
         t0 = time.perf_counter()
         run = run_burgers.main(argv)
         runner_s = time.perf_counter() - t0
         launches_b = dict(two_loop_cuda.LAUNCHES)
         rb, warm = run["result"], run["warmup"]
-        captures = Resident.captures - captures
+        captures = _captures() - captures
         want = warm.n_iters + rb.n_iters + captures
         check(launches_b == {k: want * (k == STREAMING) for k in launches_b},
               f"Burgers runner: launches {launches_b} != {want} directions through K2 "
@@ -1723,10 +1733,10 @@ def pinn_phase(torch, dev, profile: bool, burgers_iters=BURGERS_ITERS):
         "--reps 1 (the runner's defaults otherwise: 1-20-20-1, m=16, 2000 iterations, tol "
         "1e-6; one timed solve instead of three)")
     _reset(two_loop_cuda.LAUNCHES)
-    captures = Resident.captures
+    captures = _captures()
     osc = run_oscillator.main(["--reps", "1"])
     launches_c = dict(two_loop_cuda.LAUNCHES)
-    captures = Resident.captures - captures
+    captures = _captures() - captures
     want = osc["iters_run"] + captures
     check(launches_c == {k: want * (k == COOPERATIVE) for k in launches_c},
           f"oscillator: launches {launches_c} != {want} directions through K1")
@@ -1762,17 +1772,16 @@ def _runner_rows(torch, style, root, out):
 
     from lbfgs_ffnn_torch.experiments import run_mnist
     from lbfgs_ffnn_torch.ops.cuda_two_loop import two_loop_cuda
-    from lbfgs_ffnn_torch.solvers.common import Resident
 
     argv = ["--style", style, "--iters", str(FO_ITERS), "--timed-chunks", "10",
             "--record-accuracy", "--data-root", str(root), "--out-dir", str(out)]
     _reset(two_loop_cuda.LAUNCHES)
-    c0 = Resident.captures
+    c0 = _captures()
     text = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(text):
         done = run_mnist.main(argv)
-    return (text.getvalue(), done, dict(two_loop_cuda.LAUNCHES), Resident.captures - c0,
+    return (text.getvalue(), done, dict(two_loop_cuda.LAUNCHES), _captures() - c0,
             time.perf_counter() - t0, argv)
 
 
@@ -1793,7 +1802,7 @@ def first_order_phase(torch, dev, profile: bool, mnist_root):
         mlp_batch_problem, mlp_init, mlp_problem, mlp_spec, take_batch,
     )
     from lbfgs_ffnn_torch.ops.cuda_two_loop import kernel_dispatch
-    from lbfgs_ffnn_torch.solvers.common import Resident, clear_graph_cache
+    from lbfgs_ffnn_torch.solvers.common import clear_graph_cache
 
     gd = importlib.import_module("lbfgs_ffnn_torch.solvers.gd")
     sgd = importlib.import_module("lbfgs_ffnn_torch.solvers.sgd")
@@ -1862,10 +1871,10 @@ def first_order_phase(torch, dev, profile: bool, mnist_root):
     for name, kw in (("momentum", dict(momentum=0.9, step_size=0.02)), ("Wolfe", dict())):
         opts = gd.GDOptions(max_iters=FO_GD_ITERS, tol=1e-12, **kw)
         eager = gd._gd_resident_eager(problem, w0, (x, y), opts)
-        c0 = Resident.captures
+        c0 = _captures()
         gd.gradient_descent(problem, w0, (x, y), opts)  # captures
-        check(Resident.captures == c0 + 1, f"GD {name}: the first solve did not capture")
-        capture_s = Resident.last_capture_s
+        check(_captures() == c0 + 1, f"GD {name}: the first solve did not capture")
+        capture_s = _capture_s()
         times = {"captured": [], "loop": []}
         for run in ("captured", "loop", "loop", "captured"):
             fn = gd.gradient_descent if run == "captured" else gd._gd_loop
@@ -1912,10 +1921,10 @@ def first_order_phase(torch, dev, profile: bool, mnist_root):
         # here (the timed solves replay them), against the same epochs eager
         eager = sgd._solve(bp, w0, x, y, opts, chunk=FO_SGD_CHECK, capture=False,
                            epochs=FO_SGD_CHECK)[0]
-        c0 = Resident.captures
+        c0 = _captures()
         cap = sgd.sgd_warm_up(bp, w0, x, y, opts, epochs=FO_SGD_CHECK)
-        check(Resident.captures == c0 + 1, f"SGD {sampling}: the warm-up did not capture")
-        capture_s = Resident.last_capture_s
+        check(_captures() == c0 + 1, f"SGD {sampling}: the warm-up did not capture")
+        capture_s = _capture_s()
         same = {k: torch.equal(getattr(cap, k)[:FO_SGD_CHECK], getattr(eager, k)[:FO_SGD_CHECK])
                 for k in ("loss_history", "gnorm_history")}
         same["x"] = torch.equal(cap.x, eager.x)
@@ -1930,7 +1939,7 @@ def first_order_phase(torch, dev, profile: bool, mnist_root):
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end) / res.n_iters)
-        check(Resident.captures == c0 + 1, f"SGD {sampling}: the timed solves captured again")
+        check(_captures() == c0 + 1, f"SGD {sampling}: the timed solves captured again")
         lh = res.loss_history[:res.n_iters].cpu().numpy()
         check(res.n_iters == FO_SGD_EPOCHS and bool(np.isfinite(lh).all()) and lh[-1] < lh[0],
               f"SGD {sampling}: {res.n_iters} epochs, losses {lh}")
@@ -2043,7 +2052,7 @@ def traffic_phase(torch, dev, profile: bool, mnist_root):
     from lbfgs_ffnn_torch.experiments import bench, run_mnist
     from lbfgs_ffnn_torch.objectives.mlp import evaluate, mlp_init, mlp_spec
     from lbfgs_ffnn_torch.ops.cuda_two_loop import COOPERATIVE, STREAMING, two_loop_cuda
-    from lbfgs_ffnn_torch.solvers.common import Resident, prepared
+    from lbfgs_ffnn_torch.solvers.common import prepared
 
     sl = importlib.import_module("lbfgs_ffnn_torch.solvers.lbfgs")
     t_phase = time.perf_counter()
@@ -2070,12 +2079,12 @@ def traffic_phase(torch, dev, profile: bool, mnist_root):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset(two_loop_cuda.LAUNCHES)
-        c0 = Resident.captures
+        c0 = _captures()
         res, _ = sl.lbfgs_chunked(problem, w0, aux, opts, chunk=sl.RESIDENT_CHUNK,
                                   callback=lambda s, t: state.update(s=s))
         torch.cuda.synchronize()
         launches = dict(two_loop_cuda.LAUNCHES)
-        captures, capture_s = Resident.captures - c0, Resident.last_capture_s
+        captures, capture_s = _captures() - c0, _capture_s()
         peak = torch.cuda.max_memory_allocated() / 2**30
         refreshes = int(state["s"].n_refresh)
         narrow = prepared(problem, aux)
@@ -2089,7 +2098,7 @@ def traffic_phase(torch, dev, profile: bool, mnist_root):
         ms_iter[tag] = start.elapsed_time(end) / again.n_iters
         launches_again = dict(two_loop_cuda.LAUNCHES)
         check(captures == 1, f"{tag}: the first solve made {captures} captures, not 1")
-        check(Resident.captures == c0 + 1 and prepared(problem, aux) is narrow,
+        check(_captures() == c0 + 1 and prepared(problem, aux) is narrow,
               f"{tag}: the second solve captured again or got a new prepared copy")
         check(res.n_iters == again.n_iters == TRAFFIC_ITERS and torch.equal(res.x, again.x),
               f"{tag}: the second solve differs from the first")
@@ -2171,14 +2180,14 @@ def traffic_phase(torch, dev, profile: bool, mnist_root):
                 "--timed-chunks", str(TRAFFIC_FO), "--data-root", str(root), "--out-dir",
                 str(Path(tmp) / "out")]
         text = io.StringIO()
-        c0 = Resident.captures
+        c0 = _captures()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(text):
             done = run_mnist.main(argv)
         wall = time.perf_counter() - t0
     names = [c.name for _, c, _ in done]
     check(names == ["MNIST_GD_u8input", "MNIST_SGD_u8input"], f"runner u8 rows: {names}")
-    check(Resident.captures - c0 == 2, f"runner u8 rows: {Resident.captures - c0} captures")
+    check(_captures() - c0 == 2, f"runner u8 rows: {_captures() - c0} captures")
     for solver, cfg, rep in done:
         lh = rep.result.loss_history[:rep.result.n_iters].cpu().numpy()
         check(rep.result.n_iters > 0 and bool(np.isfinite(lh).all()) and lh[-1] < lh[0],
@@ -2352,7 +2361,7 @@ def suite_phase(torch, dev, profile: bool, mnist_root):
     from lbfgs_ffnn_torch.objectives.mlp import mlp_init, mlp_problem, mlp_spec
     from lbfgs_ffnn_torch.ops.cuda_lstsq import lstsq_min_norm
     from lbfgs_ffnn_torch.ops.cuda_two_loop import COOPERATIVE, two_loop_cuda
-    from lbfgs_ffnn_torch.solvers.common import Resident, clear_graph_cache
+    from lbfgs_ffnn_torch.solvers.common import clear_graph_cache
     from lbfgs_ffnn_torch.types import DENSE_HESSIAN_LIMIT
 
     tb = importlib.import_module("lbfgs_ffnn_torch.solvers.bfgs")
@@ -2364,7 +2373,7 @@ def suite_phase(torch, dev, profile: bool, mnist_root):
     # (a) the suite runner, f64 then f32; the counts from 0 just before
     _reset(two_loop_cuda.LAUNCHES)
     lstsq_min_norm.LAUNCHES.reset()
-    c0 = Resident.captures
+    c0 = _captures()
     records, walls = {}, {}
     f32_argv = ["--f32", "--gmres-max-iters", str(SUITE_F32_GMRES_ITERS)]
     for prec, argv in (("f64", []), ("f32", f32_argv)):
@@ -2377,7 +2386,7 @@ def suite_phase(torch, dev, profile: bool, mnist_root):
             say("suite", f"  [{prec}] {line}")
     launches = dict(two_loop_cuda.LAUNCHES)
     lstsq_launches = int(lstsq_min_norm.LAUNCHES)
-    captures = Resident.captures - c0
+    captures = _captures() - c0
     by = {(r.test, r.implementation): r for r in records["f64"]}
     gates = []
     for impl in ("BFGS", "LBFGS", "BFGS+GMRES", "Newton"):
@@ -2424,17 +2433,17 @@ def suite_phase(torch, dev, profile: bool, mnist_root):
     for tag, (solve, eager, opts) in rows.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        c0 = Resident.captures
+        c0 = _captures()
         first = solve(problem, w0, aux, opts)
         torch.cuda.synchronize()
-        capture_s, peak = Resident.last_capture_s, torch.cuda.max_memory_allocated() / 2**30
+        capture_s, peak = _capture_s(), torch.cuda.max_memory_allocated() / 2**30
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         res = solve(problem, w0, aux, opts)
         end.record()
         end.synchronize()
         ms[tag] = start.elapsed_time(end) / res.n_iters
-        check(Resident.captures == c0 + 1, f"{tag}: {Resident.captures - c0} captures, not 1")
+        check(_captures() == c0 + 1, f"{tag}: {_captures() - c0} captures, not 1")
         check(_same_solve(torch, res, first) and _same_solve(torch, res, eager(problem, w0, aux,
                                                                               opts)),
               f"{tag}: the captured solve differs from the eager body (or from itself)")
@@ -2469,7 +2478,7 @@ def suite_phase(torch, dev, profile: bool, mnist_root):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         solve(prob, x0, opts=opts)
-        capture_s = Resident.last_capture_s
+        capture_s = _capture_s()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         res = solve(prob, x0, opts=opts)
@@ -2510,10 +2519,10 @@ def suite_phase(torch, dev, profile: bool, mnist_root):
         Options = mod.BFGSOptions if kind == "bfgs" else mod.NewtonOptions
         opts = Options(max_iters=SUITE_CHECK_ITERS, tol=1e-14, **kw)
         prob = rosenbrock_problem()  # one problem: the graph cache keys on it
-        c0 = Resident.captures
+        c0 = _captures()
         cap = solve(prob, x4, opts=opts)
         again = solve(prob, x4, opts=opts)
-        check(Resident.captures == c0 + 1, f"{kind} {mode}: the second solve captured again")
+        check(_captures() == c0 + 1, f"{kind} {mode}: the second solve captured again")
         check(_same_solve(torch, cap, eager(prob, x4, opts=opts))
               and _same_solve(torch, cap, again),
               f"{kind} {mode}: captured != eager body (bitwise)")
@@ -3113,7 +3122,6 @@ def parallel_phase(torch, dev, profile: bool, mnist_root):
     from lbfgs_ffnn_torch.ops.cuda_two_loop import COOPERATIVE, STREAMING, two_loop_cuda
     from lbfgs_ffnn_torch.parallel import data_parallel_problem, make_mesh, shard_batch
     from lbfgs_ffnn_torch.parallel.collectives import COLLECTIVES
-    from lbfgs_ffnn_torch.solvers.common import Resident
     from lbfgs_ffnn_torch.types import Problem
 
     tl = importlib.import_module("lbfgs_ffnn_torch.solvers.lbfgs")
@@ -3143,11 +3151,11 @@ def parallel_phase(torch, dev, profile: bool, mnist_root):
 
     # (a) data-parallel L-BFGS, captured, against the undistributed full objective
     tl.clear_graph_cache()
-    caps = Resident.captures
+    caps = _captures()
     runs = {"mesh": lambda: tl.lbfgs(dp, w0, (xs, ys), opts),
             "single": lambda: tl.lbfgs(full, w0, (x, y), opts)}
     res, ms, counts = _par_timed(torch, runs, ("mesh", "single", "single", "mesh"), L)
-    check(Resident.captures == caps + 2, f"{Resident.captures - caps} captures for two solves "
+    check(_captures() == caps + 2, f"{_captures() - caps} captures for two solves "
           "each run three times: a solve recaptured")
     rm, rs = res["mesh"], res["single"]
     check(rm.n_iters == ITERS, f"data-parallel solve ran {rm.n_iters} iterations")

@@ -27,15 +27,25 @@ parameter-sharded L-BFGS with its sharded and Gram-form two-loops), and
 the native host runtime (``runtime``: ``runtime.cpp``, built with g++ at
 first use, for IDX reading, CSV writing and the batch streamer's
 producer).
+
+The package's own import is the span ``import`` of
+:mod:`lbfgs_ffnn_torch.utils.profiling`.
 """
 
-from lbfgs_ffnn_torch.types import (
+import time as _time
+
+_IMPORT_START_NS = _time.perf_counter_ns()
+
+from lbfgs_ffnn_torch.utils import profiling as _profiling  # noqa: E402
+from lbfgs_ffnn_torch.types import (  # noqa: E402
     BatchProblem, Problem, SolveResult, make_batch_problem, make_problem,
 )
-from lbfgs_ffnn_torch.solvers import (
+from lbfgs_ffnn_torch.solvers import (  # noqa: E402
     BFGSOptions, GDOptions, LBFGSOptions, NewtonOptions, SGDOptions, SLBFGSOptions, bfgs,
     gradient_descent, lbfgs, newton, sgd, slbfgs, slbfgs_chunked,
 )
+
+_profiling.record("import", _IMPORT_START_NS, _time.perf_counter_ns())
 
 __version__ = "0.1.0"
 

@@ -32,6 +32,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+from lbfgs_ffnn_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
@@ -79,7 +81,13 @@ def build_host(src: Path) -> Built:
 def _compile(src: Path, name: str, compiler: str, flags) -> Built:
     """``compiler flags -o build/lib<name>.so src``, keyed by the hash of the
     source, the compiler and the flags; raises with the compiler's stderr
-    when it fails."""
+    when it fails. The span ``native.build`` (``detail`` the library's
+    name) holds the hash check and the compile."""
+    with profiling.span("native.build", name):
+        return _compile_now(src, name, compiler, flags)
+
+
+def _compile_now(src: Path, name: str, compiler: str, flags) -> Built:
     key = hashlib.sha256(src.read_bytes() + " ".join((compiler, *flags)).encode()).hexdigest()
     so = BUILD_DIR / f"lib{name}.so"
     stamp = BUILD_DIR / f"lib{name}.sha256"
@@ -118,7 +126,9 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed (the
+    span ``native.load``, its build within it)."""
     if name not in _LOADED:
-        _LOADED[name] = ctypes.CDLL(str(build(name).path))
+        with profiling.span("native.load", name):
+            _LOADED[name] = ctypes.CDLL(str(build(name).path))
     return _LOADED[name]

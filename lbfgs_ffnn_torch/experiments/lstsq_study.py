@@ -355,7 +355,7 @@ def suite_rows(dev, iters: int = SUITE_ITERS) -> dict:
     kernel; per case: wall s, capture s, launches, iterations, final |g|."""
     from lbfgs_ffnn_torch.experiments.run_deterministic_suite import TOL
     from lbfgs_ffnn_torch.ops.cuda_lstsq import lstsq_min_norm
-    from lbfgs_ffnn_torch.solvers.common import Resident
+    from lbfgs_ffnn_torch.utils import profiling
 
     tb = importlib.import_module("lbfgs_ffnn_torch.solvers.bfgs")
     opts = tb.BFGSOptions(max_iters=iters, tol=TOL, linear_solver="gmres")
@@ -364,13 +364,14 @@ def suite_rows(dev, iters: int = SUITE_ITERS) -> dict:
     for case, (problem, x0) in suite_cases(dev).items():
         count.counter(dev)
         count.reset()
-        c0 = Resident.captures
+        c0 = profiling.counter("captures")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = tb.bfgs(problem, x0, opts=opts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        capture = Resident.last_capture_s if Resident.captures > c0 else 0.0
+        capture = (profiling.last("resident.capture").seconds
+                   if profiling.counter("captures") > c0 else 0.0)
         rows[case] = {"wall_s": wall, "capture_s": capture, "launches": int(count),
                       "n_iters": res.n_iters, "final_gnorm": float(res.final_gnorm)}
     return rows

@@ -29,7 +29,8 @@ from lbfgs_ffnn_torch.objectives.mlp import mlp_apply
 from lbfgs_ffnn_torch.objectives.pinn import (
     burgers_points, burgers_problem, default_burgers_spec, pinn_init,
 )
-from lbfgs_ffnn_torch.solvers.common import Resident, full_f32
+from lbfgs_ffnn_torch.solvers.common import full_f32
+from lbfgs_ffnn_torch.utils import profiling
 from lbfgs_ffnn_torch.solvers.lbfgs import LBFGSOptions, lbfgs, lbfgs_warm_up
 
 
@@ -96,7 +97,7 @@ def main(argv=None) -> dict:
     warm, capture_s = None, None
     if dev.type == "cuda":  # captures the timed solve's iteration
         warm = lbfgs_warm_up(prob, w0 * (1.0 + 1e-6) + 1e-7, pts, opts)
-        capture_s = Resident.last_capture_s
+        capture_s = profiling.last("resident.capture").seconds
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         res = lbfgs(prob, w0, pts, opts)

@@ -20,6 +20,7 @@ import threading
 from pathlib import Path
 
 from lbfgs_ffnn_torch import _build
+from lbfgs_ffnn_torch.utils import profiling
 
 SRC = Path(__file__).resolve().parent / "runtime.cpp"
 ERR_PRODUCER = -5  # streamer_next: the producer thread failed (runtime.cpp)
@@ -33,7 +34,8 @@ def get_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _declare(ctypes.CDLL(str(_build.build_host(SRC).path)))
+            with profiling.span("native.load", SRC.stem):
+                _lib = _declare(ctypes.CDLL(str(_build.build_host(SRC).path)))
         return _lib
 
 

@@ -45,6 +45,7 @@ from lbfgs_ffnn_torch.solvers.common import (
     solve_resident, wolfe_step,
 )
 from lbfgs_ffnn_torch.types import Problem, SolveResult
+from lbfgs_ffnn_torch.utils import profiling as _prof
 
 
 class BFGSOptions(NamedTuple):
@@ -216,18 +217,24 @@ def _solve(problem: Problem, x0: torch.Tensor, aux, opts: BFGSOptions, initial_h
         B0 = initial_hessian.to(dtype=x0.dtype, device=x0.device).clone()
     else:
         B0 = torch.eye(n, dtype=x0.dtype, device=x0.device)
-    with full_f32(), torch.no_grad():
+    with _prof.solve(x0.device) as trace, full_f32(), torch.no_grad():
         aux = prepared(problem, aux)
         body = _make_resident_body(problem, opts)
         key = ("bfgs", problem, opts, tuple(x0.shape), x0.dtype, x0.device, data_key(aux))
+
+        def iteration(s, not_done):
+            body(s, not_done, aux)
+
         (k, nf, ng, nmv, _), r = solve_resident(
-            key, lambda s, not_done: body(s, not_done, aux),
-            _init_state(problem, opts, x0, aux, B0), lambda s: _not_done(s, opts), _counters,
-            (0, 1, 1, 0, True), opts.max_iters, chunk=chunk, capture=capture)
-        s = r.state
-        return finalize(s.x.clone(), k, s.gnorm <= opts.tol, s.f.clone(), s.gnorm.clone(),
-                        s.loss_h.clone(), s.gnorm_h.clone(), n_fevals=nf, n_gevals=ng,
-                        n_matvecs=nmv, n_host_syncs=r.syncs)
+            key, iteration, _init_state(problem, opts, x0, aux, B0),
+            lambda s: _not_done(s, opts), _counters, (0, 1, 1, 0, True), opts.max_iters,
+            chunk=chunk, capture=capture)
+        with _prof.hot("finalize") if _prof.ACTIVE else _prof.OFF:
+            s = r.state
+            return finalize(s.x.clone(), k, s.gnorm <= opts.tol, s.f.clone(),
+                            s.gnorm.clone(), s.loss_h.clone(), s.gnorm_h.clone(),
+                            n_fevals=nf, n_gevals=ng, n_matvecs=nmv, n_host_syncs=r.syncs,
+                            trace=trace)
 
 
 def bfgs(

@@ -19,6 +19,7 @@ import torch
 from lbfgs_ffnn_torch.ops.control import Graph, assign, capture, guard, host_reads
 from lbfgs_ffnn_torch.ops.linesearch import wolfe_line_search_device
 from lbfgs_ffnn_torch.types import SolveResult
+from lbfgs_ffnn_torch.utils import profiling as _prof
 
 
 def init_history(max_iters: int, dtype, device=None):
@@ -67,7 +68,7 @@ def init_metric_history(metric_fn, epochs: int, w0, x, y, *margs) -> torch.Tenso
 
 def finalize(x, k, converged, loss, gnorm, loss_h, gnorm_h, metric_h=None,
              n_fevals=None, n_gevals=None, n_hevals=None, n_matvecs=None,
-             n_host_syncs=None) -> SolveResult:
+             n_host_syncs=None, trace=None) -> SolveResult:
     return SolveResult(
         x=x,
         n_iters=k,
@@ -82,6 +83,7 @@ def finalize(x, k, converged, loss, gnorm, loss_h, gnorm_h, metric_h=None,
         n_hevals=n_hevals,
         n_matvecs=n_matvecs,
         n_host_syncs=n_host_syncs,
+        trace=trace,
     )
 
 
@@ -251,20 +253,21 @@ class Resident:
     ``body(state, not_done)`` works in place, guarded by the device bool
     ``not_done``, which the step updates; ``not_done_of(state)`` computes
     that bool. Bodies hand each other values only through static buffers
-    made before capture. Each capture first runs every body once eagerly on
-    a copy of the state (``captures`` counts them: a launch count on the
-    card sees those runs too), then once in a flat check capture, where a
-    host sync in a body raises cleanly, then into the graph that
-    :meth:`step` replays. ``syncs`` counts the host reads: one per chunk
-    (:class:`Snapshot`), and, uncaptured, each read of a loop's flag
-    (:func:`~lbfgs_ffnn_torch.ops.control.host_reads`).
+    made before capture. Each capture (the span ``resident.capture``) first
+    runs every body once eagerly on a copy of the state (the counter
+    ``captures`` counts them: a launch count on the card sees those runs
+    too), then once in a flat check capture, where a host sync in a body
+    raises cleanly, then into the graph that :meth:`step` replays.
+    ``syncs`` counts the host reads: one per chunk (:class:`Snapshot`),
+    and, uncaptured, each read of a loop's flag
+    (:func:`~lbfgs_ffnn_torch.ops.control.host_reads`). A recorded solve
+    (:mod:`lbfgs_ffnn_torch.utils.profiling`) sees each replay of a body
+    as the span ``replay:<the body's __name__>``.
     """
-
-    captures = 0
-    last_capture_s = None  # seconds the latest capture took, its eager runs included
 
     def __init__(self, bodies, state, not_done_of: Callable, capture: bool, schedule=None):
         self.bodies = list(bodies)
+        self.names = [getattr(b, "__name__", "body") for b in self.bodies]
         self.schedule = list(range(len(self.bodies)) if schedule is None else schedule)
         self.state = state
         self._not_done_of = not_done_of
@@ -275,39 +278,45 @@ class Resident:
             self._capture()
 
     def _capture(self) -> None:
-        t0 = time.perf_counter()
-        # An eager run of the bodies on a copy of the state first, on a side
-        # stream: cuBLAS, the allocator and the kernels' launch
-        # configurations are set up before capture.
-        warm, flag = clone(self.state), self.not_done.clone()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for body in self.bodies:
-                body(warm, flag)
-        torch.cuda.current_stream().wait_stream(side)
-        Resident.captures += 1
-        # The capture mode ("global") raises on any host sync. A flat
-        # capture first (no IF nodes, never replayed) is where a sync in a
-        # body raises: inside an IF node's body it could not be unwound.
-        for body in self.bodies:
-            with capture(Graph(flat=True)):
-                body(warm, self.not_done.clone())
-        del warm
-        self.graphs = []
-        for body in self.bodies:
-            self.graphs.append(Graph())
-            with capture(self.graphs[-1]):
-                body(self.state, self.not_done)
-        torch.cuda.synchronize()
-        Resident.last_capture_s = time.perf_counter() - t0
+        with _prof.span("resident.capture"):
+            # An eager run of the bodies on a copy of the state first, on a
+            # side stream: cuBLAS, the allocator and the kernels' launch
+            # configurations are set up before capture.
+            with _prof.span("capture.eager"):
+                warm, flag = clone(self.state), self.not_done.clone()
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    for body in self.bodies:
+                        body(warm, flag)
+                torch.cuda.current_stream().wait_stream(side)
+            _prof.count("captures")
+            # The capture mode ("global") raises on any host sync. A flat
+            # capture first (no IF nodes, never replayed) is where a sync in
+            # a body raises: inside an IF node's body it could not be unwound.
+            with _prof.span("capture.check"):
+                for body in self.bodies:
+                    with capture(Graph(flat=True)):
+                        body(warm, self.not_done.clone())
+                del warm
+            with _prof.span("capture.graph"):
+                self.graphs = []
+                for body in self.bodies:
+                    self.graphs.append(Graph())
+                    with capture(self.graphs[-1]):
+                        body(self.state, self.not_done)
+                torch.cuda.synchronize()
 
     def load(self, src) -> None:
-        copy_state(self.state, src)
-        self.not_done.copy_(self._not_done_of(self.state))
-        self.syncs = 0
+        with _prof.hot("resident.load") if _prof.ACTIVE else _prof.OFF:
+            copy_state(self.state, src)
+            self.not_done.copy_(self._not_done_of(self.state))
+            self.syncs = 0
 
     def step(self) -> None:
+        t = _prof.current() if _prof.ACTIVE else None
+        if t is not None:
+            return self._step_recorded(t)
         if self.graphs is not None:
             for i in self.schedule:
                 self.graphs[i].replay()
@@ -316,6 +325,24 @@ class Resident:
         for i in self.schedule:
             self.bodies[i](self.state, self.not_done)
         self.syncs += host_reads() - reads  # an eager loop's flag reads
+
+    def _step_recorded(self, t) -> None:
+        """:meth:`step` in a recorded solve: a span per replay of a body,
+        the device's end of each on the host clock."""
+        for i in self.schedule:
+            name = self.names[i]
+            with t.open("replay:" + name):
+                t.launch()
+                if self.graphs is not None:
+                    self.graphs[i].replay()
+                else:
+                    reads = host_reads()
+                    self.bodies[i](self.state, self.not_done)
+                    reads = host_reads() - reads
+                    self.syncs += reads
+                    t.counters["host_syncs"] += reads
+                t.landed("replay:" + name, self.graphs is not None)
+            t.counters["replays:" + name] += 1
 
 
 class Snapshot:
@@ -339,11 +366,14 @@ class Snapshot:
 
     def values(self) -> tuple:
         if self._values is None:
-            if self._event is not None:
-                self._event.synchronize()
-            *counts, not_done = self._host.tolist()
+            with _prof.hot("chunk.read") if _prof.ACTIVE else _prof.OFF:
+                if self._event is not None:
+                    self._event.synchronize()
+                *counts, not_done = self._host.tolist()
             self._values = (*counts, bool(not_done))
             self._r.syncs += 1
+            if _prof.ACTIVE:
+                _prof.hot_count("host_syncs")
         return self._values
 
 
@@ -359,9 +389,10 @@ def drive_resident(r: Resident, chunk: int, total: int, counters: Callable,
         raise ValueError(f"chunk must be at least 1, got {chunk}")
 
     def run_chunk(_snap):
-        for _ in range(chunk):
-            r.step()
-        return Snapshot(r, counters)
+        with _prof.hot("chunk") if _prof.ACTIVE else _prof.OFF:
+            for _ in range(chunk):
+                r.step()
+            return Snapshot(r, counters)
 
     cb = None
     if callback is not None:
@@ -415,8 +446,10 @@ def cached_resident(key: tuple, make: Callable[[], Resident]) -> Resident:
     graph reads: problem, options, shapes and :func:`data_key`; the entry
     keeps the data alive), else ``make()``'s, cached."""
     if key in _GRAPHS:
+        _prof.count("graph_cache.hit")
         _GRAPHS.move_to_end(key)
         return _GRAPHS[key]
+    _prof.count("graph_cache.miss")
     while len(_GRAPHS) >= RESIDENT_CACHE_SIZE:
         _GRAPHS.popitem(last=False)
     _GRAPHS[key] = make()
@@ -440,11 +473,14 @@ def prepared(problem, aux):
         return aux
     key = (problem, data_key(aux), tuple(t._version for t in tensors(aux)))
     if key in _PREPARED:
+        _prof.count("prepared.hit")
         _PREPARED.move_to_end(key)
         return _PREPARED[key][1]
+    _prof.count("prepared.miss")
     while len(_PREPARED) >= RESIDENT_CACHE_SIZE:
         _PREPARED.popitem(last=False)
-    _PREPARED[key] = (aux, problem.prepare(aux))
+    with _prof.span("prepare"):
+        _PREPARED[key] = (aux, problem.prepare(aux))
     return _PREPARED[key][1]
 
 

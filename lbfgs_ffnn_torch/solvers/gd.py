@@ -40,6 +40,7 @@ from lbfgs_ffnn_torch.solvers.common import (
     lean_gate, prepared, record, record_at, wolfe_step,
 )
 from lbfgs_ffnn_torch.types import Problem, SolveResult
+from lbfgs_ffnn_torch.utils import profiling as _prof
 
 
 class GDOptions(NamedTuple):
@@ -150,13 +151,15 @@ def _solve(problem: Problem, x0: Optional[torch.Tensor], aux, opts: GDOptions, *
     like = x0 if x0 is not None else resume_state.x
     if capture and not like.is_cuda:
         raise ValueError(f"a captured solve needs CUDA tensors, got {like.device}")
-    with full_f32(), torch.no_grad():
+    with _prof.solve(like.device) as trace, full_f32(), torch.no_grad():
         aux = prepared(problem, aux)
         body = _make_resident_body(problem, opts)
 
+        def iteration(s, not_done):
+            body(s, not_done, aux)
+
         def make():
-            return Resident([lambda s, not_done: body(s, not_done, aux)],
-                            _init_state(problem, opts, like, aux),
+            return Resident([iteration], _init_state(problem, opts, like, aux),
                             lambda s: _not_done(s, opts), capture)
 
         r = make() if not capture else cached_resident(
@@ -171,10 +174,11 @@ def _solve(problem: Problem, x0: Optional[torch.Tensor], aux, opts: GDOptions, *
         (k, nf, ng, _), time_ms = drive_resident(
             r, chunk, opts.max_iters if iters is None else iters, _counters, known,
             callback=callback, pipeline=capture and iters is None)
-        s = r.state
-        res = finalize(s.x.clone(), k, s.gnorm < opts.tol, s.f.clone(), s.gnorm.clone(),
-                       s.loss_h.clone(), s.gnorm_h.clone(), n_fevals=nf, n_gevals=ng,
-                       n_host_syncs=r.syncs)
+        with _prof.hot("finalize") if _prof.ACTIVE else _prof.OFF:
+            s = r.state
+            res = finalize(s.x.clone(), k, s.gnorm < opts.tol, s.f.clone(), s.gnorm.clone(),
+                           s.loss_h.clone(), s.gnorm_h.clone(), n_fevals=nf, n_gevals=ng,
+                           n_host_syncs=r.syncs, trace=trace)
     return res, time_ms
 
 
@@ -244,7 +248,7 @@ def _gd_loop(problem: Problem, x0: torch.Tensor, aux: Any = (),
     The reference the resident driver is held against."""
     opts = opts or GDOptions()
     lean = lean_gate(problem, opts.ls_value_only)
-    with full_f32(), torch.no_grad():
+    with _prof.solve(x0.device) as trace, full_f32(), torch.no_grad():
         aux = prepared(problem, aux)
         f, g = problem.value_and_grad(x0, aux)
         gnorm = torch.linalg.norm(g)
@@ -279,4 +283,4 @@ def _gd_loop(problem: Problem, x0: torch.Tensor, aux: Any = (),
     # one stop test per iteration, plus the final one when tol (not
     # max_iters) ended the solve
     return finalize(x, k, gnorm < opts.tol, f, gnorm, loss_h, gnorm_h, n_fevals=nf,
-                    n_gevals=ng, n_host_syncs=syncs + k + int(k < opts.max_iters))
+                    n_gevals=ng, n_host_syncs=syncs + k + int(k < opts.max_iters), trace=trace)

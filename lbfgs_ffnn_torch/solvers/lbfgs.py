@@ -102,6 +102,7 @@ from lbfgs_ffnn_torch.solvers.common import (  # clear_graph_cache: re-exported
     wolfe_with_counters,
 )
 from lbfgs_ffnn_torch.types import Problem, SolveResult
+from lbfgs_ffnn_torch.utils import profiling as _prof
 
 
 class LBFGSOptions(NamedTuple):
@@ -659,9 +660,11 @@ def _resident(problem: Problem, opts: LBFGSOptions, x0: torch.Tensor, aux,
     pp, ops = (env.pp, env.ops) if env is not None else (problem, None)
     body = _make_resident_body(pp, opts, ops)
 
+    def iteration(s, not_done):
+        body(s, not_done, aux)
+
     def make():
-        return Resident([lambda s, not_done: body(s, not_done, aux)],
-                        _init_state(pp, opts, x0, aux, ops),
+        return Resident([iteration], _init_state(pp, opts, x0, aux, ops),
                         lambda s: _not_done(s, opts), capture)
 
     if not capture:
@@ -687,7 +690,7 @@ def _solve_resident(problem: Problem, x0: Optional[torch.Tensor], aux, opts: LBF
     if capture and not like.is_cuda:
         raise ValueError(f"a captured solve needs CUDA tensors, got {like.device}")
     pp, ops = (env.pp, env.ops) if env is not None else (problem, None)
-    with full_f32(), torch.no_grad():
+    with _prof.solve(like.device) as trace, full_f32(), torch.no_grad():
         aux = prepared(problem, aux)
         r = _resident(problem, opts, like, aux, capture, env)
         known = None
@@ -704,11 +707,12 @@ def _solve_resident(problem: Problem, x0: Optional[torch.Tensor], aux, opts: LBF
         (k, nf, ng, _), time_ms = drive_resident(
             r, chunk, opts.max_iters if iters is None else iters, _counters, known,
             callback=callback, pipeline=pipeline)
-        s = r.state
-        x = s.x.clone() if env is None else env.gather(s.x)[:env.n]
-        res = finalize(x, k, s.gnorm < opts.tol, s.f.clone(), s.gnorm.clone(),
-                       s.loss_h.clone(), s.gnorm_h.clone(), n_fevals=nf, n_gevals=ng,
-                       n_host_syncs=r.syncs)
+        with _prof.hot("finalize") if _prof.ACTIVE else _prof.OFF:
+            s = r.state
+            x = s.x.clone() if env is None else env.gather(s.x)[:env.n]
+            res = finalize(x, k, s.gnorm < opts.tol, s.f.clone(), s.gnorm.clone(),
+                           s.loss_h.clone(), s.gnorm_h.clone(), n_fevals=nf, n_gevals=ng,
+                           n_host_syncs=r.syncs, trace=trace)
     return res, time_ms
 
 
@@ -962,17 +966,18 @@ def _lbfgs_loop(problem: Problem, x0: torch.Tensor, aux: Any = (),
         _check_options(opts)
     pp, ops = (env.pp, env.ops) if env is not None else (problem, _vec_ops(opts))
     body = _make_body(pp, opts, ops)
-    with full_f32(), torch.no_grad():
-        aux = prepared(problem, aux)
-        s = _init_loop_state(pp, opts, x0, aux, ops)
-        while _loop_not_done(s, opts):
-            s = body(s, aux)
-    # One stop test per iteration, plus the final one when tol (not
-    # max_iters) ended the solve.
-    syncs = s.syncs + s.k + int(s.k < opts.max_iters)
-    x = s.x if env is None else env.gather(s.x)[:env.n]
-    return finalize(x, s.k, s.gnorm < opts.tol, s.f, s.gnorm, s.loss_h, s.gnorm_h,
-                    n_fevals=s.nf, n_gevals=s.ng, n_host_syncs=syncs)
+    with _prof.solve(x0.device) as trace:
+        with full_f32(), torch.no_grad():
+            aux = prepared(problem, aux)
+            s = _init_loop_state(pp, opts, x0, aux, ops)
+            while _loop_not_done(s, opts):
+                s = body(s, aux)
+        # One stop test per iteration, plus the final one when tol (not
+        # max_iters) ended the solve.
+        syncs = s.syncs + s.k + int(s.k < opts.max_iters)
+        x = s.x if env is None else env.gather(s.x)[:env.n]
+        return finalize(x, s.k, s.gnorm < opts.tol, s.f, s.gnorm, s.loss_h, s.gnorm_h,
+                        n_fevals=s.nf, n_gevals=s.ng, n_host_syncs=syncs, trace=trace)
 
 
 def lbfgs_warm_up(problem: Problem, x0: torch.Tensor, aux: Any = (),

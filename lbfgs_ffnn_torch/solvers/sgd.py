@@ -56,6 +56,7 @@ from lbfgs_ffnn_torch.solvers.common import (
     init_metric_history, record_at, record_row,
 )
 from lbfgs_ffnn_torch.types import BatchProblem, SolveResult
+from lbfgs_ffnn_torch.utils import profiling as _prof
 
 
 class SGDOptions(NamedTuple):
@@ -250,7 +251,7 @@ def _solve(problem: BatchProblem, w0: Optional[torch.Tensor], x, y, opts: SGDOpt
     if capture and not like.is_cuda:
         raise ValueError(f"a captured solve needs CUDA tensors, got {like.device}")
     margs = tuple(metric_args)
-    with full_f32(), torch.no_grad():
+    with _prof.solve(like.device) as trace, full_f32(), torch.no_grad():
         state = resume_state if resume_state is not None else _init_state(opts, w0, x, y, margs)
         state = state._replace(seed=device_seed(opts.seed, like.device))  # the seed is the run's
 
@@ -267,12 +268,13 @@ def _solve(problem: BatchProblem, w0: Optional[torch.Tensor], x, y, opts: SGDOpt
         (k, _), time_ms = drive_resident(r, chunk, opts.epochs if epochs is None else epochs,
                                          _counters, known, callback=callback,
                                          pipeline=capture and epochs is None)
-        s = r.state
-        last = max(k - 1, 0)
-        res = finalize(s.w.clone(), k, s.stop.clone(), s.loss_h[last].clone(),
-                       s.gnorm_h[last].clone(), s.loss_h.clone(), s.gnorm_h.clone(),
-                       s.metric_h.clone() if opts.metric_fn is not None else None,
-                       n_host_syncs=r.syncs)
+        with _prof.hot("finalize") if _prof.ACTIVE else _prof.OFF:
+            s = r.state
+            last = max(k - 1, 0)
+            res = finalize(s.w.clone(), k, s.stop.clone(), s.loss_h[last].clone(),
+                           s.gnorm_h[last].clone(), s.loss_h.clone(), s.gnorm_h.clone(),
+                           s.metric_h.clone() if opts.metric_fn is not None else None,
+                           n_host_syncs=r.syncs, trace=trace)
     return res, time_ms
 
 
@@ -400,7 +402,7 @@ def sgd_streaming(
 
     b = streamer.batch_size
     cols = torch.arange(b, device=dev)
-    with full_f32(), torch.no_grad():
+    with _prof.solve(dev) as trace, full_f32(), torch.no_grad():
         v = torch.zeros_like(w)
         lr = torch.full((), opts.step_size, dtype=w.dtype, device=dev)
         loss_h, gnorm_h = init_history(opts.epochs, w.dtype, dev)
@@ -438,4 +440,4 @@ def sgd_streaming(
             gnorm = torch.linalg.norm(problem.grad_masked(w, *last_trained))
     return SolveResult(x=w, n_iters=opts.epochs, converged=torch.zeros((), dtype=torch.bool),
                        final_loss=last_loss, final_gnorm=gnorm, loss_history=loss_h,
-                       gnorm_history=gnorm_h)
+                       gnorm_history=gnorm_h, trace=trace)

@@ -83,6 +83,7 @@ from lbfgs_ffnn_torch.solvers.common import (
     init_metric_history, record_at, record_row,
 )
 from lbfgs_ffnn_torch.types import BatchProblem, SolveResult
+from lbfgs_ffnn_torch.utils import profiling as _prof
 
 
 class SLBFGSOptions(NamedTuple):
@@ -586,7 +587,7 @@ def _solve(problem: BatchProblem, w0: Optional[torch.Tensor], x, y, opts: SLBFGS
     margs = tuple(metric_args)
     if mesh is not None:
         _check_mesh_rows(x, mesh, axis)
-    with full_f32(), torch.no_grad():
+    with _prof.solve(like.device) as trace, full_f32(), torch.no_grad():
         r = _resident(problem, opts, like, x, y, margs, sampler, capture, store, mesh, axis)
         state = (resume_state if resume_state is not None
                  else _init_state(opts, w0, x, y, margs))
@@ -596,11 +597,12 @@ def _solve(problem: BatchProblem, w0: Optional[torch.Tensor], x, y, opts: SLBFGS
         (k, _), time_ms = drive_resident(r, chunk, opts.epochs if epochs is None else epochs,
                                          _counters, known, callback=callback,
                                          pipeline=capture and epochs is None)
-        s = r.state
-        res = finalize(s.w.clone(), k, s.stop.clone(), s.loss_h[max(k - 1, 0)].clone(),
-                       s.gnorm.clone(), s.loss_h.clone(), s.gnorm_h.clone(),
-                       s.metric_h.clone() if opts.metric_fn is not None else None,
-                       n_host_syncs=r.syncs)
+        with _prof.hot("finalize") if _prof.ACTIVE else _prof.OFF:
+            s = r.state
+            res = finalize(s.w.clone(), k, s.stop.clone(), s.loss_h[max(k - 1, 0)].clone(),
+                           s.gnorm.clone(), s.loss_h.clone(), s.gnorm_h.clone(),
+                           s.metric_h.clone() if opts.metric_fn is not None else None,
+                           n_host_syncs=r.syncs, trace=trace)
     return res, time_ms
 
 

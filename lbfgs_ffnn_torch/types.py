@@ -113,7 +113,10 @@ class SolveResult(NamedTuple):
     with NaN past ``n_iters``. Counters known on the host (``n_iters``,
     ``n_fevals``, ``n_gevals``, ``n_host_syncs``) are Python ints.
     ``n_host_syncs`` counts the points where the solve waited for the device
-    to hand a value to the host.
+    to hand a value to the host. ``trace`` is the solve's
+    :class:`~lbfgs_ffnn_torch.utils.profiling.SolveTrace` (its spans,
+    counters and the device's idle gaps) where the solve was recorded, else
+    None.
     """
 
     x: torch.Tensor
@@ -129,6 +132,7 @@ class SolveResult(NamedTuple):
     n_hevals: Optional[int] = None  # Hessian-vector products
     n_matvecs: Optional[int] = None  # Krylov operator applications
     n_host_syncs: Optional[int] = None
+    trace: Optional[Any] = None
 
 
 def make_problem(

@@ -23,7 +23,8 @@ import pytest
 import torch
 
 from lbfgs_ffnn_torch.objectives.analytic import rosenbrock_problem, rosenbrock_start
-from lbfgs_ffnn_torch.solvers.common import Resident, clear_graph_cache
+from lbfgs_ffnn_torch.solvers.common import clear_graph_cache
+from lbfgs_ffnn_torch.utils import profiling
 
 tb = importlib.import_module("lbfgs_ffnn_torch.solvers.bfgs")
 tn = importlib.import_module("lbfgs_ffnn_torch.solvers.newton")
@@ -73,16 +74,16 @@ def test_captured_solve_equals_eager_body(cuda, kind, mode):
     problem = rosenbrock_problem()
     x0 = rosenbrock_start(4, device=cuda)
     clear_graph_cache()
-    c0 = Resident.captures
+    c0 = profiling.counter("captures")
     cap = solve(problem, x0, opts=opts)
-    assert Resident.captures == c0 + 1
+    assert profiling.counter("captures") == c0 + 1
     _same(cap, eager(problem, x0, opts=opts))
     assert cap.n_host_syncs <= -(-cap.n_iters // chunk) + 2
     lh = cap.loss_history[:cap.n_iters].cpu().numpy()
     assert np.all(np.isfinite(lh)) and lh[-1] < lh[0]
     x1 = x0 * 0.9
     again = solve(problem, x1, opts=opts)
-    assert Resident.captures == c0 + 1
+    assert profiling.counter("captures") == c0 + 1
     _same(again, eager(problem, x1, opts=opts))
 
 
@@ -130,9 +131,9 @@ def test_direct_solve_is_captured(cuda, n):
     x0 = rosenbrock_start(n, device=cuda)
     opts = tb.BFGSOptions(max_iters=3, tol=1e-14)
     clear_graph_cache()
-    c0 = Resident.captures
+    c0 = profiling.counter("captures")
     cap = tb.bfgs(problem, x0, opts=opts)
-    assert Resident.captures == c0 + 1 and cap.n_iters == 3
+    assert profiling.counter("captures") == c0 + 1 and cap.n_iters == 3
     _same(cap, tb._bfgs_resident_eager(problem, x0, opts=opts))
     clear_graph_cache()
 
@@ -287,13 +288,13 @@ def test_body_that_raises_three_nodes_deep(cuda):
     x0 = rosenbrock_start(4, device=cuda)
     stream = torch.cuda.current_stream()
     clear_graph_cache()
-    c0 = Resident.captures
+    c0 = profiling.counter("captures")
     with pytest.raises((RuntimeError, ValueError)):
         tn.newton(bad, x0, opts=opts)
     assert torch.cuda.current_stream() == stream
     torch.cuda.synchronize()
     cap = tn.newton(good, x0, opts=opts)
-    assert Resident.captures == c0 + 2
+    assert profiling.counter("captures") == c0 + 2
     _same(cap, tn._newton_resident_eager(good, x0, opts=opts))
 
 

@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from lbfgs_ffnn_torch.objectives.mlp import mlp_batch_problem, mlp_init, mlp_problem, mlp_spec
-from lbfgs_ffnn_torch.solvers.common import Resident, clear_graph_cache
+from lbfgs_ffnn_torch.solvers.common import clear_graph_cache
+from lbfgs_ffnn_torch.utils import profiling
 
 tgd = importlib.import_module("lbfgs_ffnn_torch.solvers.gd")
 tsgd = importlib.import_module("lbfgs_ffnn_torch.solvers.sgd")
@@ -70,10 +71,10 @@ def test_captured_gd_equals_eager_body(cuda, branch):
     lh = cap.loss_history.cpu().numpy()
     assert np.all(np.isfinite(lh)) and lh[-1] < lh[0]
     # a second solve from another start replays the cached graph
-    c0 = Resident.captures
+    c0 = profiling.counter("captures")
     w1 = w0 * 0.5
     again = tgd.gradient_descent(problem, w1, (x, y), opts)
-    assert Resident.captures == c0
+    assert profiling.counter("captures") == c0
     _same(again, tgd._gd_resident_eager(problem, w1, (x, y), opts))
 
 
@@ -105,9 +106,9 @@ def test_captured_sgd_equals_eager_body(cuda, sampling, monkeypatch):
     lh = cap.loss_history.cpu().numpy()
     assert np.all(np.isfinite(lh)) and lh[-1] < lh[0]
     # another seed: the same graphs (the seed is in the state), its own draws
-    c0 = Resident.captures
+    c0 = profiling.counter("captures")
     other = tsgd.sgd(problem, w0, x, y, opts._replace(seed=7))
-    assert Resident.captures == c0
+    assert profiling.counter("captures") == c0
     _same(other, tsgd._sgd_resident_eager(problem, w0, x, y, opts._replace(seed=7)))
     assert torch.equal(other.x, cap.x) == (sampling == "sequential")
 
@@ -152,21 +153,21 @@ def test_warm_up_captures_the_timed_solves_step(cuda, solver):
     if solver == "gd":
         problem, opts = mlp_problem(spec), tgd.GDOptions(max_iters=12, momentum=0.9,
                                                          step_size=0.05, tol=1e-12)
-        c0 = Resident.captures
+        c0 = profiling.counter("captures")
         warm = tgd.gd_warm_up(problem, w0, (x, y), opts, iters=3)
-        c1 = Resident.captures
+        c1 = profiling.counter("captures")
         whole = tgd.gradient_descent(problem, w0, (x, y), opts)
         eager = tgd._gd_resident_eager(problem, w0, (x, y), opts)
     else:
         problem = mlp_batch_problem(spec)
         opts = tsgd.SGDOptions(epochs=6, batch_size=128, step_size=0.05, momentum=0.9,
                                sampling="random", lr_decay=0.8, lr_decay_step=2)
-        c0 = Resident.captures
+        c0 = profiling.counter("captures")
         warm = tsgd.sgd_warm_up(problem, w0, x, y, opts, epochs=3)
-        c1 = Resident.captures
+        c1 = profiling.counter("captures")
         whole = tsgd.sgd(problem, w0, x, y, opts)
         eager = tsgd._sgd_resident_eager(problem, w0, x, y, opts)
-    assert c1 == c0 + 1 and Resident.captures == c1 and warm.n_iters == 3
+    assert c1 == c0 + 1 and profiling.counter("captures") == c1 and warm.n_iters == 3
     _same(whole, eager)
     for f in ("loss_history", "gnorm_history"):
         assert torch.equal(getattr(warm, f)[:3], getattr(eager, f)[:3]), f

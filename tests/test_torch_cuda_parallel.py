@@ -37,7 +37,8 @@ import pytest
 import torch
 
 from lbfgs_ffnn_torch.objectives.mlp import mlp_batch_problem, mlp_init, mlp_problem, mlp_spec
-from lbfgs_ffnn_torch.solvers.common import Resident, clear_graph_cache
+from lbfgs_ffnn_torch.solvers.common import clear_graph_cache
+from lbfgs_ffnn_torch.utils import profiling
 
 tl = importlib.import_module("lbfgs_ffnn_torch.solvers.lbfgs")
 tsl = importlib.import_module("lbfgs_ffnn_torch.solvers.slbfgs")
@@ -82,9 +83,9 @@ def test_captured_data_parallel_lbfgs_equals_eager_body(meshes, line_search):
     opts = tl.LBFGSOptions(max_iters=30, tol=1e-12, m=10, line_search=line_search)
     clear_graph_cache()
     captured = tl.lbfgs(dp, w0, aux, opts)
-    caps = Resident.captures
+    caps = profiling.counter("captures")
     again = tl.lbfgs(dp, w0, aux, opts)
-    assert Resident.captures == caps  # replayed, not captured again
+    assert profiling.counter("captures") == caps  # replayed, not captured again
     _same(captured, again)
     _same(captured, tl._lbfgs_resident_eager(dp, w0, aux, opts))
     assert captured.n_host_syncs <= -(-captured.n_iters // tl.RESIDENT_CHUNK) + 2
@@ -100,9 +101,9 @@ def test_captured_sharded_lbfgs_equals_eager_body(meshes, impl):
                            two_loop_impl=impl)
     clear_graph_cache()
     captured = tl.lbfgs(prob, w0, (x, y), opts, mesh=mmesh)
-    caps = Resident.captures
+    caps = profiling.counter("captures")
     _same(captured, tl.lbfgs(prob, w0, (x, y), opts, mesh=mmesh))
-    assert Resident.captures == caps
+    assert profiling.counter("captures") == caps
     eager = tl._solve_sharded(prob, w0, (x, y), opts, mmesh, "model", chunk=10, capture=False,
                               pipeline=False)[0]
     _same(captured, eager)
@@ -201,9 +202,9 @@ def _nccl_world2_rank(rank: int, port: int, out: Path) -> None:
         opts = tl.LBFGSOptions(max_iters=20, tol=1e-12, m=10, line_search=ls)
         clear_graph_cache()
         captured = tl.lbfgs(dp, w0, aux, opts)
-        caps = Resident.captures
+        caps = profiling.counter("captures")
         again = tl.lbfgs(dp, w0, aux, opts)
-        res[f"{ls}_recaptured"] = Resident.captures - caps
+        res[f"{ls}_recaptured"] = profiling.counter("captures") - caps
         eager = tl._lbfgs_resident_eager(dp, w0, aux, opts)
         single = tl.lbfgs(prob, w0, (x, y), opts)
         for name, r in (("captured", captured), ("again", again), ("eager", eager),

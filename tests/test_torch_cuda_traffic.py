@@ -22,7 +22,8 @@ from lbfgs_ffnn_torch.experiments.bench import HEADLINE_ROWS, variants
 from lbfgs_ffnn_torch.objectives.mlp import (
     mlp_batch_problem, mlp_init, mlp_spec, quantize_pixels,
 )
-from lbfgs_ffnn_torch.solvers.common import Resident, clear_graph_cache, clone, prepared
+from lbfgs_ffnn_torch.solvers.common import clear_graph_cache, clone, prepared
+from lbfgs_ffnn_torch.utils import profiling
 
 tl = importlib.import_module("lbfgs_ffnn_torch.solvers.lbfgs")
 tsgd = importlib.import_module("lbfgs_ffnn_torch.solvers.sgd")
@@ -61,9 +62,9 @@ def test_captured_variant_equals_eager_body_and_captures_once(cuda, row):
                            ls_max_iters=20)
     problem, opts = variants(spec, base)[row]
     clear_graph_cache()
-    c0 = Resident.captures
+    c0 = profiling.counter("captures")
     cap = tl.lbfgs(problem, w0, (x, y), opts)
-    assert Resident.captures == c0 + 1
+    assert profiling.counter("captures") == c0 + 1
     eager = tl._lbfgs_resident_eager(problem, w0, (x, y), opts)
     _same(cap, eager)
     assert (cap.n_iters, cap.n_fevals, cap.n_gevals) == (iters, eager.n_fevals, eager.n_gevals)
@@ -73,7 +74,7 @@ def test_captured_variant_equals_eager_body_and_captures_once(cuda, row):
     # same prepared copy
     narrow = prepared(problem, (x, y))
     again = tl.lbfgs(problem, w0 * 0.5, (x, y), opts)
-    assert Resident.captures == c0 + 1
+    assert profiling.counter("captures") == c0 + 1
     assert all(a is b for a, b in zip(prepared(problem, (x, y)), narrow, strict=True))
     _same(again, tl._lbfgs_resident_eager(problem, w0 * 0.5, (x, y), opts))
     clear_graph_cache()
